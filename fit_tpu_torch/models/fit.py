@@ -1,0 +1,160 @@
+"""FiT: Flexible Vision Transformer for diffusion, as a torch ``nn.Module``.
+
+Counterpart of ``fit_tpu/models/fit.py`` for ``pos_kind="rotate"`` and dense
+SwiGLU blocks: a DiT-style transformer over packed variable-length token
+sequences with per-token 2D RoPE tables and a prefix validity mask.
+
+``dtype`` is the compute dtype. Parameters are created in fp32 on
+``device``; :class:`fit_tpu_torch.sampling.FiTSampler` casts them to the
+compute dtype once, and until then each projection casts on the fly.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from fit_tpu_torch.core.geometry import patchify, unpatchify
+from fit_tpu_torch.models.layers import (
+    FinalLayer,
+    FiTBlock,
+    LabelEmbedder,
+    TimestepEmbedder,
+    linear,
+)
+from fit_tpu_torch.ops.rope_attention import split_rope_tables
+
+__all__ = ["FiT", "FiT_models", "create_fit", "lengths_from_mask"]
+
+
+def lengths_from_mask(mask: Optional[torch.Tensor], n: int, t: int, device) -> torch.Tensor:
+    """(N, T) boolean prefix mask -> (N,) int32 lengths; all T when None.
+    Raises if a row has no valid token (its softmax would be empty)."""
+    if mask is None:
+        return torch.full((n,), t, dtype=torch.int32, device=device)
+    lengths = mask.sum(dim=-1, dtype=torch.int32)
+    if bool((lengths < 1).any()):
+        raise ValueError("every mask row needs at least one valid token")
+    return lengths
+
+
+class FiT(nn.Module):
+    """The FiT denoiser.
+
+    ``forward(x, t, y, pos, mask, train)``: ``x`` is tokens ``(N, T, p*p*C)``
+    when ``train`` is true, or a latent canvas ``(N, C, H, W)`` otherwise
+    (patchified and unpatchified inside; the sampling path). ``t``, ``y``:
+    ``(N,)`` timesteps and labels. ``pos``: ``(N, T, head_dim)`` interleaved
+    RoPE tables. ``mask``: ``(N, T)`` boolean prefix validity mask.
+
+    ``plain_attention`` routes every block through the plain PyTorch
+    attention instead of the kernel (the on-card reference).
+    """
+
+    def __init__(
+        self,
+        patch_size: int = 2,
+        in_channels: int = 4,
+        hidden_size: int = 1152,
+        depth: int = 28,
+        num_heads: int = 16,
+        mlp_ratio: float = 4.0,
+        class_dropout_prob: float = 0.1,
+        num_classes: int = 1000,
+        learn_sigma: bool = False,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+    ):
+        super().__init__()
+        self.patch_size = patch_size
+        self.in_channels = in_channels
+        self.hidden_size = hidden_size
+        self.depth = depth
+        self.num_heads = num_heads
+        self.num_classes = num_classes
+        self.out_channels = in_channels * 2 if learn_sigma else in_channels
+        self.dtype = dtype
+        self.plain_attention = False
+
+        self.x_embedder = nn.Linear(patch_size * patch_size * in_channels, hidden_size, device=device)
+        self.t_embedder = TimestepEmbedder(hidden_size, device=device)
+        self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob, device=device)
+        self.blocks = nn.ModuleList(
+            FiTBlock(hidden_size, num_heads, mlp_ratio, device=device) for _ in range(depth)
+        )
+        self.final = FinalLayer(hidden_size, patch_size, self.out_channels, device=device)
+        self.reset_parameters()
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """Reference init: xavier-uniform Linear weights and zero biases,
+        normal(0.02) embedders, zero adaLN and final projection (so an
+        untrained model predicts eps = 0)."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                nn.init.xavier_uniform_(m.weight)
+                nn.init.zeros_(m.bias)
+        for m in (self.t_embedder.fc1, self.t_embedder.fc2):
+            nn.init.normal_(m.weight, std=0.02)
+        nn.init.normal_(self.y_embedder.table.weight, std=0.02)
+        for m in [blk.adaLN for blk in self.blocks] + [self.final.adaLN, self.final.linear]:
+            nn.init.zeros_(m.weight)
+            nn.init.zeros_(m.bias)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor,
+        y: torch.Tensor,
+        pos: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        train: bool = True,
+    ) -> torch.Tensor:
+        if not train:
+            h, w = x.shape[-2:]
+            x = patchify(x, self.patch_size)
+        n, seq = x.shape[:2]
+        x = linear(self.x_embedder, x.to(self.dtype))
+        cos, sin = split_rope_tables(pos)
+        lengths = lengths_from_mask(mask, n, seq, x.device)
+        c = self.t_embedder(t, self.dtype) + self.y_embedder(y, train, self.dtype)
+        for blk in self.blocks:
+            x = blk(x, c, cos, sin, lengths, self.plain_attention)
+        x = self.final(x, c)
+        if not train:
+            x = unpatchify(x.float(), h, w, self.patch_size, self.out_channels)
+        return x
+
+    def forward_with_cfg(self, x, t, y, pos, mask, cfg_scale: float) -> torch.Tensor:
+        """Classifier-free-guidance forward on a canvas batch packed as
+        [conditional half | null-class half] with the same latents in both;
+        the guided eps (all ``in_channels``) is returned in both halves."""
+        half = x[: x.shape[0] // 2]
+        out = self(torch.cat([half, half], dim=0), t, y, pos, mask, train=False)
+        eps, rest = out[:, : self.in_channels], out[:, self.in_channels :]
+        cond_eps, uncond_eps = eps.chunk(2, dim=0)
+        guided = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+        return torch.cat([torch.cat([guided, guided], dim=0), rest], dim=1)
+
+
+_SIZES = {"XL": (28, 1152, 16), "L": (24, 1024, 16), "B": (12, 768, 12), "S": (12, 384, 6)}
+
+
+def create_fit(name: str, **kwargs) -> FiT:
+    """A FiT by registry name, e.g. ``create_fit("FiT-XL/2", dtype=torch.bfloat16)``."""
+    size, patch = name.removeprefix("FiT-").split("/")
+    depth, hidden, heads = _SIZES[size]
+    return FiT(depth=depth, hidden_size=hidden, num_heads=heads, patch_size=int(patch), **kwargs)
+
+
+FiT_models = {
+    f"FiT-{size}/{patch}": (lambda name: lambda **kw: create_fit(name, **kw))(f"FiT-{size}/{patch}")
+    for size in _SIZES
+    for patch in (2, 4, 8)
+}

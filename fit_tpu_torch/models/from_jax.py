@@ -1,0 +1,55 @@
+"""Carry ``fit_tpu`` weights into the port.
+
+``fit_tpu`` keeps a flax param tree: Dense kernels ``(in, out)`` (torch
+``weight`` transposed), the qkv kernel head-grouped ``(D, 3, C)`` with bias
+``(3, C)`` (the same memory order as flat ``(D, 3C)``), embeddings under
+``embedding``, and the blocks either unrolled (``blocks_i``) or stacked for
+scan-over-layers (``blocks/block`` with a leading depth axis). The tree must
+hold numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
+never imports jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["torch_state_dict_from_flax"]
+
+
+def _leaf_entries(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
+    if "kernel" in node:
+        kernel = np.asarray(node["kernel"])
+        return {
+            f"{prefix}.weight": kernel.reshape(kernel.shape[0], -1).T,
+            f"{prefix}.bias": np.asarray(node["bias"]).reshape(-1),
+        }
+    if "embedding" in node:
+        return {f"{prefix}.weight": np.asarray(node["embedding"])}
+    out: Dict[str, np.ndarray] = {}
+    for name, child in node.items():
+        out.update(_leaf_entries(f"{prefix}.{name}" if prefix else name, child))
+    return out
+
+
+def torch_state_dict_from_flax(params_np: Mapping, depth: int) -> Dict[str, torch.Tensor]:
+    """``fit_tpu`` FiT params (numpy leaves, with or without the outer
+    ``"params"`` key) -> the port's ``FiT.state_dict()``."""
+    tree = dict(params_np.get("params", params_np))
+    if "blocks" in tree:  # scan-stacked: (depth, ...) leaves under blocks/block
+        stacked = tree.pop("blocks")["block"]
+        for i in range(depth):
+            tree[f"blocks_{i}"] = _index_tree(stacked, i)
+    blocks = {f"blocks.{i}": tree.pop(f"blocks_{i}") for i in range(depth)}
+    entries = _leaf_entries("", tree)
+    for prefix, node in blocks.items():
+        entries.update(_leaf_entries(prefix, node))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in entries.items()}
+
+
+def _index_tree(node: Mapping, i: int):
+    if isinstance(node, Mapping):
+        return {k: _index_tree(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
