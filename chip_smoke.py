@@ -6,15 +6,25 @@ card and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases, each printing one line; any failure raises (non-zero exit):
+Phases, each printing its lines; any failure raises (non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compiles the CUDA kernels from the sources in the checkout;
+  2. build: compiles the CUDA kernels from the sources in the checkout, one
+     nvcc per source, all at once;
   3. kernel vs plain: the RoPE + masked attention kernel against its plain
      PyTorch version at the shapes of the main path, with the time of both;
-  4. slice: FiT-XL/2 with seeded random weights, 256x256 DDIM + CFG
+  3b. the row kernels (adaLN and SwiGLU glue, with and without the int8
+     epilogue) against their plain versions at FiT-XL/2 serving shapes,
+     with the time of both, and the int8 GEMM (torch._int_mm) beside bf16;
+  4. sampling: FiT-XL/2 with seeded random weights, 256x256 DDIM + CFG
      ``FiTSampler.sample`` at batch 8 and ``sample_mixed`` over four aspect
      ratios, checking the outputs, the kernel's launch count and one guided
-     forward against the same forward with the plain attention.
+     forward against the same forward with the plain kernels;
+  5. int8 serving: the same weights through ``quantize_model``; one guided
+     int8 forward against the plain kernels and against the bf16 model;
+     then ``SamplingServer`` behind its HTTP handler on 127.0.0.1 answers
+     seeded requests of mixed sizes, checking every response, the
+     determinism of a repeated seed, the server's stats and every kernel's
+     launch count.
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits non-zero and prints no result.
@@ -22,10 +32,17 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import io
 import json
 import subprocess
+import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from http.server import ThreadingHTTPServer
 
+import numpy as np
 import torch
 
 STEPS = 10
@@ -36,6 +53,22 @@ DEPTH = 28  # FiT-XL/2 blocks, one kernel launch each per denoise step
 BF16_ATOL = 3e-2  # bf16 q/k, p and output roundings against the fp32 plain version
 FP32_ATOL = 1e-4  # fp32 FMA dots, another summation order
 FORWARD_REL_RMS = 5e-2  # a full bf16 XL forward, kernel vs plain attention
+# One int8 FiT-XL/2 block (fp32 compute), kernels vs plain kernels, on the
+# block's update: 1e-2 relative RMS. The int8 path is not a smooth function
+# of its input: a sum taken in another order that tips a value across a
+# rounding boundary moves it by a whole int8 step. So the script also
+# measures that floor, the plain path's own move under a relative input
+# perturbation of 1e-7 (one block) and 1e-6 (the whole forward). Over 28
+# blocks the steps add up to about the quantization error itself, so the
+# whole int8 forward is held to FORWARD_REL_RMS, as the bf16 one is.
+INT8_BLOCK_REL_RMS = 1e-2
+BLOCK_PERTURBATION = 1e-7
+INPUT_PERTURBATION = 1e-6
+SERVE_STEPS = 10
+SERVE_BATCH = 8
+SEED_REPEAT_ATOL = 1e-3  # bound on a repeated seed's drift, should the bits differ
+ROW_SHAPES = [(16, 256), (64, 256), (5, 251)]  # batch 8 and 32 with CFG, and a ragged row count
+XL_HIDDEN, XL_MLP = 1152, 3072
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -81,9 +114,8 @@ def attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed):
     return err, ms, plain_ms
 
 
-def guided_forward_rel_rms(model, sampler_mod, head_dim, sizes, gen):
-    """Relative RMS between one guided forward through the kernel and the
-    same forward through the plain attention, at the given image sizes."""
+def guided_inputs(sampler_mod, head_dim, sizes, gen):
+    """Inputs of one guided forward at the given image sizes."""
     n = len(sizes)
     pos = torch.zeros((n, 256, head_dim))
     mask = torch.zeros((n, 256), dtype=torch.bool)
@@ -95,25 +127,250 @@ def guided_forward_rel_rms(model, sampler_mod, head_dim, sizes, gen):
     x = torch.randn((2 * n, 4, 32, 32), generator=gen, device="cuda")
     t = torch.full((2 * n,), 500, device="cuda")
     y = torch.cat([torch.arange(n, device="cuda"), torch.full((n,), 1000, device="cuda")])
-    with torch.inference_mode():
-        out_kernel = model.forward_with_cfg(x, t, y, pos2, mask2, CFG_SCALE)
-        model.plain_attention = True
-        try:
-            out_plain = model.forward_with_cfg(x, t, y, pos2, mask2, CFG_SCALE)
-        finally:
-            model.plain_attention = False
-    if not (torch.isfinite(out_kernel).all() and torch.isfinite(out_plain).all()):
+    return x, t, y, pos2, mask2
+
+
+def guided_forward(model, inputs, plain=False):
+    """One guided forward, through the kernels or (plain) their plain versions."""
+    model.plain_kernels = plain
+    try:
+        with torch.inference_mode():
+            out = model.forward_with_cfg(*inputs, CFG_SCALE)
+    finally:
+        model.plain_kernels = False
+    if not torch.isfinite(out).all():
         raise AssertionError("non-finite guided forward")
-    return ((out_kernel - out_plain).pow(2).mean() / out_plain.pow(2).mean()).sqrt().item()
+    return out
+
+
+def rel_rms(got, want) -> float:
+    return ((got - want).pow(2).mean() / want.pow(2).mean()).sqrt().item()
+
+
+def guided_forward_rel_rms(model, sampler_mod, head_dim, sizes, gen):
+    """Relative RMS between one guided forward through the kernels and the
+    same forward through their plain versions, at the given image sizes."""
+    inputs = guided_inputs(sampler_mod, head_dim, sizes, gen)
+    return rel_rms(guided_forward(model, inputs), guided_forward(model, inputs, plain=True))
+
+
+def block_rel_rms(model, ra, inputs, gen):
+    """One middle block of ``model`` on a random hidden state at the guided
+    batch's shapes. Returns the relative RMS between the block's update
+    through the kernels and through their plain versions, and that of the
+    plain update under a BLOCK_PERTURBATION of the hidden state."""
+    _, _, _, pos, mask = inputs
+    n, hidden = pos.shape[0], model.hidden_size
+    x = torch.randn((n, 256, hidden), generator=gen, device="cuda").to(model.dtype)
+    c = torch.randn((n, hidden), generator=gen, device="cuda").to(model.dtype)
+    cos, sin = ra.split_rope_tables(pos)
+    lengths = mask.sum(-1, dtype=torch.int32)
+    block = model.blocks[len(model.blocks) // 2]
+    nudged = x * (1 + BLOCK_PERTURBATION)
+    with torch.inference_mode():
+        got = block(x, c, cos, sin, lengths, False) - x
+        want = block(x, c, cos, sin, lengths, True) - x
+        moved = block(nudged, c, cos, sin, lengths, True) - nudged
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite int8 block")
+    return rel_rms(got.float(), want.float()), rel_rms(moved.float(), want.float())
+
+
+def bf16_ulps(got, want) -> float:
+    """Largest |got - want| in bf16 ulps of want, a value under 2^-8 in
+    magnitude judged at the ulp of 2^-8: where shift + n * (1 + scale)
+    cancels to near zero, fp32 sums taken in another order differ by ~1e-7,
+    which is many ulps of the tiny result but no error of the kernel."""
+    want = want.float()
+    exp = torch.floor(torch.log2(want.abs().clamp_min(2.0**-8)))
+    return ((got.float() - want).abs() / torch.exp2(exp - 7)).max().item()
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of ``fn()`` in ms, without the host's launch overhead:
+    the launches of ``iters`` calls queue up behind a spin kernel, so the
+    CUDA events around them time the card alone."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~60 ms at the H100's clocks: the host enqueues meanwhile
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def row_kernel_cases(quant, fused_adaln):
+    """Phase 3b: each row kernel against its plain version, bf16, at the
+    XL serving shapes. Returns {name: (max_abs_err, kernel ms, plain ms)}
+    with the device times at batch 8 + CFG (4,096 rows)."""
+    variants = {
+        "adaln_quant": (XL_HIDDEN, True, quant.adaln_quant),
+        "adaln_modulate": (XL_HIDDEN, False, fused_adaln.adaln_modulate),
+        "silu_mul_quant": (XL_MLP, True, quant.silu_mul_quant),
+        "swiglu_glue": (XL_MLP, False, fused_adaln.swiglu_glue),
+    }
+    results = {}
+    for name, (width, with_quant, fn) in variants.items():
+        errs = []
+        for b, t in ROW_SHAPES:
+            gen = torch.Generator(device="cuda").manual_seed(b * t)
+            x = (torch.randn((b, t, width), generator=gen, device="cuda") * 3 + 1).to(torch.bfloat16)
+            if name.startswith("adaln"):
+                mod = torch.randn((b, 6 * width), generator=gen, device="cuda").to(torch.bfloat16)
+                args = (x, mod[:, :width], mod[:, width : 2 * width])
+            else:
+                args = (x, torch.randn((b, t, width), generator=gen, device="cuda").to(torch.bfloat16))
+            got, want = fn(*args), fn(*args, plain=True)
+            torch.cuda.synchronize()
+            if with_quant:
+                (q, s), (q_ref, s_ref) = got, want
+                dq = (q.int() - q_ref.int()).abs()
+                n_diff = int((dq > 0).sum().item())
+                s_rel = ((s - s_ref).abs() / s_ref).max().item()
+                err = (q.float() * s - q_ref.float() * s_ref).abs().max().item()
+                detail = f"max|dq|={int(dq.max().item())} codes differing={n_diff}/{dq.numel()} scale_rel={s_rel:.2e}"
+                ok = dq.max().item() <= 1 and n_diff <= 1e-3 * dq.numel() and s_rel <= 1e-6
+            else:
+                ulps = bf16_ulps(got, want)
+                err = (got.float() - want.float()).abs().max().item()
+                detail = f"max_ulps={ulps:.3f}"
+                ok = ulps <= 1
+            ms, plain_ms = device_ms(lambda: fn(*args)), device_ms(lambda: fn(*args, plain=True))
+            wall_ms, plain_wall_ms = time_ms(lambda: fn(*args)), time_ms(lambda: fn(*args, plain=True))
+            print(
+                f"row kernel vs plain: {name} rows={b * t} width={width} bf16 {detail} "
+                f"max_abs_err={err:.3e} kernel_us={ms * 1e3:.1f} plain_us={plain_ms * 1e3:.1f} (device); "
+                f"back to back, host-paced: kernel {wall_ms * 1e3:.1f} plain {plain_wall_ms * 1e3:.1f}",
+                flush=True,
+            )
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version at {(b, t, width)}: {detail}")
+            errs.append(err)
+            if (b, t) == ROW_SHAPES[0]:
+                results[name] = (ms, plain_ms)
+        results[name] = (max(errs), *results[name])
+    return results
+
+
+def int8_gemm_line(quant) -> None:
+    """The int8 product (torch._int_mm) at the XL qkv shape of batch 8 with
+    CFG, with the weight stored (N, K) and passed transposed (the port's
+    layout) and stored (K, N), beside the bf16 Linear on the same shape."""
+    m, k, n = 4096, XL_HIDDEN, 3 * XL_HIDDEN
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    w_nk = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    w_kn = w_nk.t().contiguous()
+    xb = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wb = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16)
+    if not torch.equal(quant._int_mm(xq, w_nk.t()), torch._int_mm(xq, w_kn)):
+        raise AssertionError("torch._int_mm disagrees between weight layouts")
+    t_nk = device_ms(lambda: quant._int_mm(xq, w_nk.t()), iters=50)
+    t_kn = device_ms(lambda: torch._int_mm(xq, w_kn), iters=50)
+    t_bf = device_ms(lambda: torch.nn.functional.linear(xb, wb), iters=50)
+    ops = 2 * m * k * n
+    print(
+        f"int8 GEMM {m}x{k}x{n}: weight (N,K).t() {t_nk * 1e3:.1f} us ({ops / t_nk / 1e9:.0f} TOPS), "
+        f"(K,N) {t_kn * 1e3:.1f} us; bf16 F.linear {t_bf * 1e3:.1f} us ({ops / t_bf / 1e9:.0f} TFLOP/s)",
+        flush=True,
+    )
+
+
+def post_sample(base: str, body: dict):
+    """POST /sample; returns (status, latent or error text)."""
+    req = urllib.request.Request(f"{base}/sample", data=json.dumps(body).encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, np.load(io.BytesIO(resp.read()))
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
+    """Phase 5, serving: SamplingServer + the HTTP handler on a free local
+    port; 12 seeded requests of mixed sizes, one seed twice in two batch
+    compositions. Returns the launch counts of this path and its numbers."""
+    ra, quant, fused_adaln = kernel_modules
+    server = serve_mod.SamplingServer(
+        qmodel, batch_size=SERVE_BATCH, max_batch_wait_s=0.1, num_sampling_steps=SERVE_STEPS,
+        cfg_scale=CFG_SCALE, sampler="ddim", device="cuda",
+    )
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    try:
+        warm_s = server.warmup(timeout=600)
+        for mod in (ra, quant, fused_adaln):
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = {"label": 3, "height": 256, "width": 256, "seed": 42}
+        responses = [(first, post_sample(base, first))]  # alone in its batch
+        burst = [
+            {"label": 100 + 37 * i, "height": h, "width": w, "seed": 1000 + i}
+            for i, (h, w) in enumerate((MIXED_SIZES * 3)[:10])
+        ]
+        burst.insert(5, dict(first))  # the same seed, now among ten others
+        with ThreadPoolExecutor(len(burst)) as pool:
+            responses += list(zip(burst, pool.map(lambda b: post_sample(base, b), burst)))
+        wall = time.perf_counter() - t0
+        launches = {"rope_attention_fwd": ra.launches, **quant.launches, **fused_adaln.launches}
+        with urllib.request.urlopen(f"{base}/stats", timeout=60) as resp:
+            stats = json.loads(resp.read())
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        http_thread.join(timeout=60)
+    peak = torch.cuda.max_memory_allocated()
+
+    for body, (status, out) in responses:
+        if status != 200:
+            raise AssertionError(f"/sample {body} -> {status}: {out}")
+        want = (4, body["height"] // 8, body["width"] // 8)
+        if tuple(out.shape) != want or out.dtype != np.float32 or not np.isfinite(out).all():
+            raise AssertionError(f"/sample {body}: bad latent {out.shape} {out.dtype}")
+    repeat = [out for body, (_, out) in responses if body == first]
+    seed_diff = float(np.abs(repeat[0] - repeat[1]).max())
+    if health != {"status": "ok"} or stats["served"] != len(responses):
+        raise AssertionError(f"/stats served {stats['served']} of {len(responses)}; /healthz {health}")
+    batches = stats["batches"]
+    per_step = {"rope_attention_fwd": DEPTH, "adaln_quant": 2 * DEPTH, "silu_mul_quant": DEPTH,
+                "adaln_modulate": 0, "swiglu_glue": 0}
+    expected = {k: v * SERVE_STEPS * batches for k, v in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"serving launches {launches}, expected {expected} for {batches} batches")
+    print(
+        f"serve: FiT-XL/2 int8 256x256 DDIM {SERVE_STEPS} steps cfg {CFG_SCALE} batch {SERVE_BATCH} over HTTP: "
+        f"{len(responses)} requests in {batches} batches, {wall:.3f} s wall, "
+        f"{wall / (batches * SERVE_STEPS) * 1e3:.2f} ms/step, {len(responses) / wall:.3f} img/s; "
+        f"latency p50 {stats['latency_p50_s'] * 1e3:.1f} ms p95 {stats['latency_p95_s'] * 1e3:.1f} ms; "
+        f"occupancy {stats['occupancy']:.3f}; warmup {warm_s:.2f} s; "
+        f"repeated seed max|diff|={seed_diff:.3e} (bit-identical: {seed_diff == 0.0}); "
+        f"launches {launches}; max_memory_allocated {peak / 2**30:.2f} GiB",
+        flush=True,
+    )
+    if not seed_diff <= SEED_REPEAT_ATOL:
+        raise AssertionError(f"a repeated seed drifted by {seed_diff} across batch compositions")
+    return launches
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card")
     from fit_tpu_torch import sampling as sampler_mod
+    from fit_tpu_torch import serve as serve_mod
+    from fit_tpu_torch.cli.serve import make_handler
     from fit_tpu_torch.core.pos_embed import rope_freqs_2d
-    from fit_tpu_torch.models.fit import create_fit
-    from fit_tpu_torch.ops import _build
+    from fit_tpu_torch.models.fit import FiT, create_fit
+    from fit_tpu_torch.ops import _build, fused_adaln, quant
     from fit_tpu_torch.ops import rope_attention as ra
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,17 +383,21 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    ra._kernel()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(ra._kernel), pool.submit(fused_adaln._lib)]:
+            f.result()
     build_s = time.perf_counter() - t0
-    ptxas = sorted({
-        line.split("ptxas info    : ")[1]
-        for log in _build.BUILD_DIR.glob("rope_attention_*.log")
-        for line in log.read_text().splitlines()
-        if "Used" in line and "registers" in line
-    })
-    print(f"build: rope_attention.cu in {build_s:.2f} s; ptxas: {ptxas}", flush=True)
+    for name in ("rope_attention", "row_quant"):
+        ptxas = sorted({
+            line.split("ptxas info    : ")[1]
+            for log in _build.BUILD_DIR.glob(f"{name}_*.log")
+            for line in log.read_text().splitlines()
+            if "Used" in line and "registers" in line
+        })
+        print(f"build: {name}.cu; ptxas: {ptxas}", flush=True)
+    print(f"build: both sources in {build_s:.2f} s", flush=True)
 
     # 3. kernel vs plain, at the main path's shapes (XL: H=16, d=72; L: d=64)
     padded16 = [256, 256, 200, 130, 64, 1, 255, 129, 256, 256, 224, 180, 256, 33, 2, 256]
@@ -153,7 +414,11 @@ def main() -> None:
             if main_ms is None:
                 main_ms, main_plain_ms = ms, plain_ms
 
-    # 4. the slice: FiT-XL/2, seeded random weights, DDIM + CFG at 256^2
+    # 3b. the row kernels and the int8 GEMM at XL serving shapes
+    rows = row_kernel_cases(quant, fused_adaln)
+    int8_gemm_line(quant)
+
+    # 4. sampling: FiT-XL/2, seeded random weights, DDIM + CFG at 256^2
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = create_fit("FiT-XL/2", dtype=torch.bfloat16, device="cuda")
     with torch.no_grad():
@@ -180,10 +445,10 @@ def main() -> None:
     mixed = sampler.sample_mixed(labels[:4], MIXED_SIZES, generator=gen)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = ra.launches
+    sample_launches = ra.launches
     expected = DEPTH * STEPS * 2
-    if launches != expected:
-        raise AssertionError(f"kernel launched {launches} times on the main path, expected {expected}")
+    if sample_launches != expected:
+        raise AssertionError(f"kernel launched {sample_launches} times on the main path, expected {expected}")
     if tuple(latents.shape) != (BATCH, 4, 32, 32) or not torch.isfinite(latents).all():
         raise AssertionError(f"bad sample output: {tuple(latents.shape)}")
     want_shapes = [(4, ih // 8, iw // 8) for ih, iw in MIXED_SIZES]
@@ -193,21 +458,78 @@ def main() -> None:
     print(
         f"slice: FiT-XL/2 256x256 DDIM {STEPS} steps cfg {CFG_SCALE} batch {BATCH}: "
         f"{step_ms:.2f} ms/step, {BATCH / (t1 - t0):.3f} img/s; sample_mixed x4 "
-        f"{(t2 - t1) / STEPS * 1e3:.2f} ms/step; kernel launches {launches}; "
+        f"{(t2 - t1) / STEPS * 1e3:.2f} ms/step; kernel launches {sample_launches}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
         flush=True,
     )
 
-    kernels = [{
-        "name": "rope_attention_fwd",
-        "route": "cuda",
-        "source": "fit_tpu_torch/ops/csrc/rope_attention.cu",
-        "replaces": "fit_tpu/ops/fused_attention.py:806",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
-    }]
+    # 5. int8: the same weights quantized; one guided forward checked, then served
+    t0 = time.perf_counter()
+    qmodel = sampler_mod.cast_for_sampling(quant.quantize_model(model), torch.device("cuda"))
+    quant_s = time.perf_counter() - t0
+    q32 = FiT(**{**qmodel.config, "dtype": torch.float32}, device="cuda")
+    q32.load_state_dict(qmodel.state_dict())
+    inputs = guided_inputs(sampler_mod, model.head_dim, [(256, 256)] * BATCH, gen)
+    inputs_mixed = guided_inputs(sampler_mod, model.head_dim, MIXED_SIZES, gen)
+    rel_block, block_floor = block_rel_rms(q32, ra, inputs, gen)
+    rel_fp32 = [rel_rms(guided_forward(q32, i), guided_forward(q32, i, plain=True)) for i in (inputs, inputs_mixed)]
+    nudged = (inputs[0] * (1 + INPUT_PERTURBATION), *inputs[1:])
+    sensitivity = rel_rms(guided_forward(q32, nudged, plain=True), guided_forward(q32, inputs, plain=True))
+    out_int8 = guided_forward(qmodel, inputs)
+    rel_bf16 = rel_rms(out_int8, guided_forward(qmodel, inputs, plain=True))
+    drift = rel_rms(out_int8, guided_forward(model, inputs))
+    print(
+        f"int8 forward: quantize_model {quant_s:.2f} s; kernels vs plain kernels rel_rms: one XL block fp32 "
+        f"{rel_block:.3e} (tol {INT8_BLOCK_REL_RMS:g}; the plain block moves by {block_floor:.3e} for a "
+        f"{BLOCK_PERTURBATION:g} input perturbation); whole forward fp32 full={rel_fp32[0]:.3e} "
+        f"mixed={rel_fp32[1]:.3e}, bf16 full={rel_bf16:.3e} (tol {FORWARD_REL_RMS:g}; the plain fp32 "
+        f"forward moves by {sensitivity:.3e} for a {INPUT_PERTURBATION:g} input perturbation); "
+        f"int8 vs bf16 rel_rms={drift:.3e}",
+        flush=True,
+    )
+    if not (rel_block <= INT8_BLOCK_REL_RMS and max(*rel_fp32, rel_bf16) <= FORWARD_REL_RMS):
+        raise AssertionError("the int8 forward through the kernels disagrees with the plain one")
+    del model, sampler, q32
+
+    # the int8 sampler alone at batch 8, beside phase 4's bf16 step
+    qsampler = sampler_mod.FiTSampler(
+        qmodel, num_sampling_steps=STEPS, cfg_scale=CFG_SCALE, sampler="ddim", device="cuda"
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qlatents = qsampler.sample(labels, 256, 256, generator=gen)
+    torch.cuda.synchronize()
+    int8_step_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    if tuple(qlatents.shape) != (BATCH, 4, 32, 32) or not torch.isfinite(qlatents).all():
+        raise AssertionError(f"bad int8 sample output: {tuple(qlatents.shape)}")
+    print(f"int8 sampler: FiT-XL/2 256x256 DDIM {STEPS} steps batch {BATCH}: {int8_step_ms:.2f} ms/step, "
+          f"{BATCH / (int8_step_ms * STEPS / 1e3):.3f} img/s (bf16: {step_ms:.2f} ms/step)", flush=True)
+
+    serve_launches = serve_phase(qmodel, serve_mod, make_handler, (ra, quant, fused_adaln))
+
+    def entry(name, source, replaces, err, ms, plain_ms, sample_count=0):
+        serve_count = serve_launches[name]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sample_count + serve_count,
+            "launches_by_path": {"sample": sample_count, "serve": serve_count},
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+        }
+
+    row_src = "fit_tpu_torch/ops/csrc/row_quant.cu"
+    kernels = [
+        entry("rope_attention_fwd", "fit_tpu_torch/ops/csrc/rope_attention.cu",
+              "fit_tpu/ops/fused_attention.py:806", max(errs), main_ms, main_plain_ms, sample_launches),
+        entry("adaln_quant", row_src, "fit_tpu/ops/quant.py:184", *rows["adaln_quant"]),
+        entry("silu_mul_quant", row_src, "fit_tpu/ops/quant.py:148", *rows["silu_mul_quant"]),
+        entry("adaln_modulate", row_src, "fit_tpu/ops/fused_adaln.py:29", *rows["adaln_modulate"]),
+        entry("swiglu_glue", row_src, "fit_tpu/ops/fused_adaln.py:66", *rows["swiglu_glue"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

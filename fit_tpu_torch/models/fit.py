@@ -7,6 +7,9 @@ sequences with per-token 2D RoPE tables and a prefix validity mask.
 ``dtype`` is the compute dtype. Parameters are created in fp32 on
 ``device``; :class:`fit_tpu_torch.sampling.FiTSampler` casts them to the
 compute dtype once, and until then each projection casts on the fly.
+``quant="int8"`` builds the w8a8 serving model (``fit_tpu_torch.ops.quant``):
+its int8 weights come from ``quantize_params`` / ``quantize_model``, never
+from init or training.
 """
 
 from __future__ import annotations
@@ -31,7 +34,10 @@ __all__ = ["FiT", "FiT_models", "create_fit", "lengths_from_mask"]
 
 def lengths_from_mask(mask: Optional[torch.Tensor], n: int, t: int, device) -> torch.Tensor:
     """(N, T) boolean prefix mask -> (N,) int32 lengths; all T when None.
-    Raises if a row has no valid token (its softmax would be empty)."""
+    Raises if a row has no valid token (its softmax would be empty). The
+    check reads the lengths back to the host, so a caller that builds its
+    masks on the host checks them there and passes ``lengths`` to the
+    forward instead (``fit_tpu_torch.sampling``)."""
     if mask is None:
         return torch.full((n,), t, dtype=torch.int32, device=device)
     lengths = mask.sum(dim=-1, dtype=torch.int32)
@@ -49,8 +55,13 @@ class FiT(nn.Module):
     ``(N,)`` timesteps and labels. ``pos``: ``(N, T, head_dim)`` interleaved
     RoPE tables. ``mask``: ``(N, T)`` boolean prefix validity mask.
 
-    ``plain_attention`` routes every block through the plain PyTorch
-    attention instead of the kernel (the on-card reference).
+    ``lengths``: ``(N,)`` int32 prefix lengths, each at least 1, in place
+    of ``mask`` (checked by the caller; no host round trip).
+
+    ``quant``: "none", or "int8" for the w8a8 serving path. Setting
+    ``plain_kernels`` routes every kernel wrapper (attention and the int8
+    epilogues) to its plain PyTorch version on any device: the on-card
+    reference the kernels are held against.
     """
 
     def __init__(
@@ -64,10 +75,18 @@ class FiT(nn.Module):
         class_dropout_prob: float = 0.1,
         num_classes: int = 1000,
         learn_sigma: bool = False,
+        quant: str = "none",
         dtype: torch.dtype = torch.float32,
         device=None,
     ):
         super().__init__()
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant {quant!r}: use 'none' or 'int8'")
+        self.config = dict(
+            patch_size=patch_size, in_channels=in_channels, hidden_size=hidden_size, depth=depth,
+            num_heads=num_heads, mlp_ratio=mlp_ratio, class_dropout_prob=class_dropout_prob,
+            num_classes=num_classes, learn_sigma=learn_sigma, quant=quant, dtype=dtype,
+        )
         self.patch_size = patch_size
         self.in_channels = in_channels
         self.hidden_size = hidden_size
@@ -75,14 +94,15 @@ class FiT(nn.Module):
         self.num_heads = num_heads
         self.num_classes = num_classes
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
+        self.quant = quant
         self.dtype = dtype
-        self.plain_attention = False
+        self.plain_kernels = False
 
         self.x_embedder = nn.Linear(patch_size * patch_size * in_channels, hidden_size, device=device)
         self.t_embedder = TimestepEmbedder(hidden_size, device=device)
         self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob, device=device)
         self.blocks = nn.ModuleList(
-            FiTBlock(hidden_size, num_heads, mlp_ratio, device=device) for _ in range(depth)
+            FiTBlock(hidden_size, num_heads, mlp_ratio, quant, device=device) for _ in range(depth)
         )
         self.final = FinalLayer(hidden_size, patch_size, self.out_channels, device=device)
         self.reset_parameters()
@@ -115,6 +135,8 @@ class FiT(nn.Module):
         pos: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         train: bool = True,
+        *,
+        lengths: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         if not train:
             h, w = x.shape[-2:]
@@ -122,21 +144,22 @@ class FiT(nn.Module):
         n, seq = x.shape[:2]
         x = linear(self.x_embedder, x.to(self.dtype))
         cos, sin = split_rope_tables(pos)
-        lengths = lengths_from_mask(mask, n, seq, x.device)
+        if lengths is None:
+            lengths = lengths_from_mask(mask, n, seq, x.device)
         c = self.t_embedder(t, self.dtype) + self.y_embedder(y, train, self.dtype)
         for blk in self.blocks:
-            x = blk(x, c, cos, sin, lengths, self.plain_attention)
+            x = blk(x, c, cos, sin, lengths, self.plain_kernels)
         x = self.final(x, c)
         if not train:
             x = unpatchify(x.float(), h, w, self.patch_size, self.out_channels)
         return x
 
-    def forward_with_cfg(self, x, t, y, pos, mask, cfg_scale: float) -> torch.Tensor:
+    def forward_with_cfg(self, x, t, y, pos, mask, cfg_scale: float, *, lengths=None) -> torch.Tensor:
         """Classifier-free-guidance forward on a canvas batch packed as
         [conditional half | null-class half] with the same latents in both;
         the guided eps (all ``in_channels``) is returned in both halves."""
         half = x[: x.shape[0] // 2]
-        out = self(torch.cat([half, half], dim=0), t, y, pos, mask, train=False)
+        out = self(torch.cat([half, half], dim=0), t, y, pos, mask, train=False, lengths=lengths)
         eps, rest = out[:, : self.in_channels], out[:, self.in_channels :]
         cond_eps, uncond_eps = eps.chunk(2, dim=0)
         guided = uncond_eps + cfg_scale * (cond_eps - uncond_eps)

@@ -4,9 +4,11 @@
 ``weight`` transposed), the qkv kernel head-grouped ``(D, 3, C)`` with bias
 ``(3, C)`` (the same memory order as flat ``(D, 3C)``), embeddings under
 ``embedding``, and the blocks either unrolled (``blocks_i``) or stacked for
-scan-over-layers (``blocks/block`` with a leading depth axis). The tree must
-hold numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
-never imports jax.
+scan-over-layers (``blocks/block`` with a leading depth axis). A tree from
+``fit_tpu.ops.quant.quantize_params`` carries across as well: its int8
+kernels stay int8 and each ``kernel_scale`` stays fp32, the grouped qkv
+scale ``(3, C)`` flattened to ``(3C,)``. The tree must hold numpy arrays
+(``jax.tree.map(np.asarray, params)``), so this module never imports jax.
 """
 
 from __future__ import annotations
@@ -22,10 +24,13 @@ __all__ = ["torch_state_dict_from_flax"]
 def _leaf_entries(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
     if "kernel" in node:
         kernel = np.asarray(node["kernel"])
-        return {
+        out = {
             f"{prefix}.weight": kernel.reshape(kernel.shape[0], -1).T,
             f"{prefix}.bias": np.asarray(node["bias"]).reshape(-1),
         }
+        if "kernel_scale" in node:
+            out[f"{prefix}.kernel_scale"] = np.asarray(node["kernel_scale"]).reshape(-1)
+        return out
     if "embedding" in node:
         return {f"{prefix}.weight": np.asarray(node["embedding"])}
     out: Dict[str, np.ndarray] = {}
@@ -46,7 +51,13 @@ def torch_state_dict_from_flax(params_np: Mapping, depth: int) -> Dict[str, torc
     entries = _leaf_entries("", tree)
     for prefix, node in blocks.items():
         entries.update(_leaf_entries(prefix, node))
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in entries.items()}
+    return {k: torch.from_numpy(_port_dtype(v)) for k, v in entries.items()}
+
+
+def _port_dtype(v: np.ndarray) -> np.ndarray:
+    """int8 kernels stay int8; every float leaf becomes a contiguous fp32 copy."""
+    v = np.asarray(v)
+    return np.array(v, dtype=np.int8 if v.dtype == np.int8 else np.float32)
 
 
 def _index_tree(node: Mapping, i: int):

@@ -1,11 +1,18 @@
 """Building blocks of the FiT denoiser as ``nn.Module``s.
 
 Counterpart of ``fit_tpu/models/layers.py`` (dense SwiGLU blocks, RoPE
-attention). Parameters may be stored in another dtype than the compute
-dtype: every projection casts its weight to the activation's dtype, which is
-a no-op once the sampler has cast the model (``fit_tpu_torch.sampling``).
-Weights are ``nn.Linear`` (``weight`` is the flax kernel transposed);
-``fit_tpu_torch.models.from_jax`` converts a flax param tree.
+attention, and the int8 branches of ``quant="int8"``). Parameters may be
+stored in another dtype than the compute dtype: every projection casts its
+weight to the activation's dtype, which is a no-op once the sampler has cast
+the model (``fit_tpu_torch.sampling``). Weights are ``nn.Linear`` (``weight``
+is the flax kernel transposed); ``fit_tpu_torch.models.from_jax`` converts a
+flax param tree. Under ``quant="int8"`` the projections of
+``fit_tpu_torch.ops.quant.QUANT_KERNEL_PATHS`` are ``Int8Linear``s, and the
+block feeds them through the fused quant epilogues ``adaln_quant`` and
+``silu_mul_quant``.
+
+``plain=True`` in a forward runs every kernel wrapper's plain PyTorch
+version on any device (the reference the kernels are held against).
 """
 
 from __future__ import annotations
@@ -17,12 +24,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fit_tpu_torch.ops.rope_attention import qkv_rope_attention, rope_attention_reference
+from fit_tpu_torch.ops.quant import Int8Linear, adaln_quant, silu_mul_quant
+from fit_tpu_torch.ops.rope_attention import qkv_rope_attention
 
 __all__ = [
     "modulate",
     "layer_norm_fp32",
     "linear",
+    "make_linear",
+    "dense",
     "TimestepEmbedder",
     "LabelEmbedder",
     "SwiGLU",
@@ -48,6 +58,23 @@ def layer_norm_fp32(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``layer(x)`` computed in x's dtype, whatever the parameters' dtype."""
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+def make_linear(in_features: int, out_features: int, quant: str, device=None) -> nn.Module:
+    """``nn.Linear``, or its int8 counterpart on the quantized path
+    (``fit_tpu``'s ``_dense``)."""
+    if quant == "int8":
+        return Int8Linear(in_features, out_features, device=device)
+    return nn.Linear(in_features, out_features, device=device)
+
+
+def dense(layer: nn.Module, x, dtype: torch.dtype) -> torch.Tensor:
+    """A projection's output in ``dtype``: an ``Int8Linear`` takes a float
+    activation or a pre-quantized ``(q, scale)`` pair; an ``nn.Linear``
+    computes in x's dtype, which is ``dtype`` on the model's path."""
+    if isinstance(layer, Int8Linear):
+        return layer(x, dtype)
+    return linear(layer, x)
 
 
 class TimestepEmbedder(nn.Module):
@@ -102,16 +129,25 @@ class LabelEmbedder(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    """Gated FFN ``fc2(silu(fc1_g(x)) * fc1_x(x))``."""
+    """Gated FFN ``fc2(silu(fc1_g(x)) * fc1_x(x))``. Under ``quant="int8"``
+    the product and its per-row int8 quantization are one fused pass
+    (:func:`silu_mul_quant`), whose ``(q, scale)`` feeds fc2."""
 
-    def __init__(self, dim: int, hidden: int, device=None):
+    def __init__(self, dim: int, hidden: int, quant: str = "none", device=None):
         super().__init__()
-        self.fc1_g = nn.Linear(dim, hidden, device=device)
-        self.fc1_x = nn.Linear(dim, hidden, device=device)
-        self.fc2 = nn.Linear(hidden, dim, device=device)
+        self.quant = quant
+        self.fc1_g = make_linear(dim, hidden, quant, device)
+        self.fc1_x = make_linear(dim, hidden, quant, device)
+        self.fc2 = make_linear(hidden, dim, quant, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(self.fc2, F.silu(linear(self.fc1_g, x)) * linear(self.fc1_x, x))
+    def forward(self, x, dtype: torch.dtype, plain: bool = False) -> torch.Tensor:
+        gate = dense(self.fc1_g, x, dtype)
+        val = dense(self.fc1_x, x, dtype)
+        if self.quant == "int8":
+            h = silu_mul_quant(gate, val, plain=plain)
+        else:
+            h = F.silu(gate) * val
+        return dense(self.fc2, h, dtype)
 
 
 class SelfAttention(nn.Module):
@@ -119,45 +155,55 @@ class SelfAttention(nn.Module):
 
     One flat qkv projection ``(D -> 3D)`` whose ``[q | k | v]`` output goes
     as it is into :func:`qkv_rope_attention`: the CUDA kernel on the card,
-    its plain version on the CPU. ``plain=True`` runs the plain version on
-    any device (the reference the kernel is held against).
+    its plain version on the CPU or with ``plain=True``. Under
+    ``quant="int8"`` qkv and proj are ``Int8Linear``s; qkv's (3C, D) weight
+    and (3C,) scale are ``fit_tpu``'s grouped (D, 3, C) and (3, C) flattened.
     """
 
-    def __init__(self, dim: int, num_heads: int, device=None):
+    def __init__(self, dim: int, num_heads: int, quant: str = "none", device=None):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, device=device)
-        self.proj = nn.Linear(dim, dim, device=device)
+        self.head_dim = dim // num_heads
+        self.qkv = make_linear(dim, 3 * dim, quant, device)
+        self.proj = make_linear(dim, dim, quant, device)
 
-    def forward(self, x, cos, sin, lengths, plain: bool = False) -> torch.Tensor:
-        qkv = linear(self.qkv, x)
-        scale = (x.shape[-1] // self.num_heads) ** -0.5
-        if plain:
-            out = rope_attention_reference(qkv, cos, sin, lengths, scale, self.num_heads)
-        else:
-            out = qkv_rope_attention(
-                qkv, cos, sin, lengths, scale, self.num_heads, check_lengths=False
-            )
-        return linear(self.proj, out)
+    def forward(self, x, cos, sin, lengths, dtype: torch.dtype, plain: bool = False) -> torch.Tensor:
+        qkv = dense(self.qkv, x, dtype)
+        out = qkv_rope_attention(
+            qkv, cos, sin, lengths, self.head_dim**-0.5, self.num_heads,
+            check_lengths=False, plain=plain,
+        )
+        return dense(self.proj, out, dtype)
 
 
 class FiTBlock(nn.Module):
-    """Pre-LN transformer block with adaLN-Zero conditioning."""
+    """Pre-LN transformer block with adaLN-Zero conditioning. Under
+    ``quant="int8"`` each LayerNorm + modulate is fused with the per-row
+    int8 quantization of its result (:func:`adaln_quant`), which feeds qkv
+    and fc1."""
 
-    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0, device=None):
+    def __init__(
+        self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0, quant: str = "none", device=None
+    ):
         super().__init__()
+        self.quant = quant
         self.adaLN = nn.Linear(hidden_size, 6 * hidden_size, device=device)
-        self.attn = SelfAttention(hidden_size, num_heads, device=device)
-        self.ffn = SwiGLU(hidden_size, int(hidden_size * mlp_ratio * 2 / 3), device=device)
+        self.attn = SelfAttention(hidden_size, num_heads, quant, device=device)
+        self.ffn = SwiGLU(hidden_size, int(hidden_size * mlp_ratio * 2 / 3), quant, device=device)
+
+    def _modulated(self, x, shift, scale, plain: bool):
+        if self.quant == "int8":
+            return adaln_quant(x, shift, scale, plain=plain)
+        return modulate(layer_norm_fp32(x), shift, scale)
 
     def forward(self, x, c, cos, sin, lengths, plain: bool = False) -> torch.Tensor:
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = linear(
             self.adaLN, F.silu(c)
         ).chunk(6, dim=-1)
-        attn_in = modulate(layer_norm_fp32(x), shift_msa, scale_msa)
-        x = x + gate_msa[:, None, :] * self.attn(attn_in, cos, sin, lengths, plain)
-        ffn_in = modulate(layer_norm_fp32(x), shift_mlp, scale_mlp)
-        return x + gate_mlp[:, None, :] * self.ffn(ffn_in)
+        attn_in = self._modulated(x, shift_msa, scale_msa, plain)
+        x = x + gate_msa[:, None, :] * self.attn(attn_in, cos, sin, lengths, x.dtype, plain)
+        ffn_in = self._modulated(x, shift_mlp, scale_mlp, plain)
+        return x + gate_mlp[:, None, :] * self.ffn(ffn_in, x.dtype, plain)
 
 
 class FinalLayer(nn.Module):

@@ -4,9 +4,10 @@ Counterpart of the public API of ``fit_tpu/ops/fused_attention.py``:
 :func:`split_rope_tables`, the rotation ``(a, b) -> (-b, a)`` on interleaved
 pairs, and :func:`qkv_rope_attention` with the signature and layout of
 ``qkv_rope_flash_attention``. On a CUDA tensor the wrapper launches the
-hand-written kernel ``csrc/rope_attention.cu`` or raises; on a CPU tensor it
-runs :func:`rope_attention_reference`, the plain PyTorch version of the same
-function. There is no fallback from the kernel to the plain version.
+hand-written kernel ``csrc/rope_attention.cu`` or raises; on a CPU tensor
+(or with ``plain=True``) it runs :func:`rope_attention_reference`, the plain
+PyTorch version of the same function. There is no fallback from the kernel
+to the plain version.
 """
 
 from __future__ import annotations
@@ -122,6 +123,7 @@ def qkv_rope_attention(
     num_heads: int,
     *,
     check_lengths: bool = True,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Fused RoPE + masked attention over the raw qkv projection output.
 
@@ -133,9 +135,10 @@ def qkv_rope_attention(
 
     ``check_lengths=False`` skips the lengths check, which reads the tensor
     back to the host; a caller that has already checked them passes it.
+    ``plain=True`` runs the plain version on any device.
     """
     global launches
-    if qkv.device.type == "cpu":
+    if plain or qkv.device.type == "cpu":
         return rope_attention_reference(qkv, cos, sin, lengths, scale, num_heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"no rope attention kernel for device {qkv.device}")

@@ -3,8 +3,11 @@ unpadded latents.
 
 Counterpart of ``fit_tpu/sampling.py`` for the DDIM and DDPM samplers. The
 canvas, the VisionNTK RoPE tables and the masks are built on the host in
-numpy and moved to the device once per call; the denoising loop then runs
-on the device with no host round trip.
+numpy, the masks are checked there and turned into prefix lengths, and all
+of it moves to the device once per call (from pinned memory, without
+waiting for the device); the denoising loop then runs on the device with no
+host round trip, so a caller can enqueue the next batch while one computes
+(``fit_tpu_torch.serve``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from fit_tpu_torch.diffusion.gaussian import create_diffusion
 from fit_tpu_torch.diffusion.samplers import ddim_sample_loop, p_sample_loop
 from fit_tpu_torch.models.fit import FiT
 
-__all__ = ["create_pos_embed", "create_mask", "FiTSampler"]
+__all__ = ["create_pos_embed", "create_mask", "mask_lengths", "cast_for_sampling", "FiTSampler"]
 
 
 def create_pos_embed(
@@ -52,12 +55,38 @@ def create_mask(valid_t: int, max_length: int, n: int) -> np.ndarray:
     return np.broadcast_to(mask, (n, mask.shape[0])).copy()
 
 
+def mask_lengths(mask: np.ndarray) -> np.ndarray:
+    """(n, T) host prefix mask -> (n,) int32 lengths; raises if a row has no
+    valid token (its softmax would be empty)."""
+    lengths = mask.sum(axis=-1).astype(np.int32)
+    if (lengths < 1).any():
+        raise ValueError("every mask row needs at least one valid token")
+    return lengths
+
+
+def cast_for_sampling(model: FiT, device: torch.device) -> FiT:
+    """Move ``model`` to ``device`` and cast, in place, its floating
+    parameters and buffers to the compute dtype ``model.dtype``, as
+    ``fit_tpu``'s ``_cast_params`` does: int8 weights stay int8 and every
+    ``kernel_scale`` stays fp32 (``nn.Module.to(dtype=)`` would cast them)."""
+    model.to(device=device)
+    for module in model.modules():
+        for name, p in module.named_parameters(recurse=False):
+            if p.is_floating_point() and name != "kernel_scale":
+                p.data = p.data.to(model.dtype)
+        for name, b in module.named_buffers(recurse=False):
+            if b.is_floating_point() and name != "kernel_scale":
+                module._buffers[name] = b.to(model.dtype)
+    return model
+
+
 class FiTSampler:
     """Class-conditional FiT sampler with classifier-free guidance.
 
     The model's floating parameters are cast in place to its compute dtype
-    (``model.dtype``) and moved to ``device`` once, here; LayerNorm
-    statistics stay fp32 inside the blocks. ``sampler`` is "ddim" or "ddpm".
+    (``model.dtype``, except int8 scales: :func:`cast_for_sampling`) and
+    moved to ``device`` once, here; LayerNorm statistics stay fp32 inside
+    the blocks. ``sampler`` is "ddim" or "ddpm".
     Sizes are in pixels; latents are ``vae_scale`` times smaller.
     """
 
@@ -76,7 +105,7 @@ class FiTSampler:
         if sampler not in ("ddim", "ddpm"):
             raise ValueError(f"unknown sampler {sampler!r}: use 'ddim' or 'ddpm'")
         self.device = torch.device(device) if device is not None else next(model.parameters()).device
-        self.model = model.to(device=self.device, dtype=model.dtype)
+        self.model = cast_for_sampling(model, self.device)
         self.num_sampling_steps = num_sampling_steps
         self.cfg_scale = cfg_scale
         self.sampler = sampler
@@ -86,8 +115,19 @@ class FiTSampler:
         self.num_classes = num_classes
         self.diffusion = create_diffusion(str(num_sampling_steps))
 
-    def _denoise(self, z, labels, pos, mask, generator) -> torch.Tensor:
-        """z: (n, C, h, w) noise; pos/mask for the 2n CFG rows. Returns the
+    def _to_device(self, x, dtype=None) -> torch.Tensor:
+        """A host array or tensor on the sampler's device. From the host to a
+        card it goes through pinned memory without waiting for the device,
+        so it does not wait for work already enqueued."""
+        x = torch.as_tensor(x)
+        if x.device == self.device:
+            return x.to(dtype=dtype)
+        if self.device.type == "cuda" and x.device.type == "cpu":
+            x = x.pin_memory()
+        return x.to(self.device, dtype=dtype, non_blocking=True)
+
+    def _denoise(self, z, labels, pos, lengths, generator) -> torch.Tensor:
+        """z: (n, C, h, w) noise; pos/lengths for the 2n CFG rows. Returns the
         (n, C, max_size or h, ...) denoised canvas of the conditional half."""
         n = z.shape[0]
         y_all = torch.cat([labels, torch.full_like(labels, self.num_classes)])
@@ -96,7 +136,7 @@ class FiTSampler:
         )
 
         def model_fn(x, t):
-            return self.model.forward_with_cfg(x, t, y_all, pos, mask, self.cfg_scale)
+            return self.model.forward_with_cfg(x, t, y_all, pos, None, self.cfg_scale, lengths=lengths)
 
         loop = ddim_sample_loop if self.sampler == "ddim" else p_sample_loop
         return loop(self.diffusion, model_fn, canvas, generator, clip_denoised=False)[:n]
@@ -117,18 +157,19 @@ class FiTSampler:
         """(n, C, h, w) latents for ``labels`` at one pixel resolution.
         ``z`` (n, C, h, w) replaces the initial noise; otherwise it is drawn
         from ``generator`` (a generator on the sampler's device)."""
-        labels = torch.as_tensor(labels, dtype=torch.long, device=self.device)
+        labels = self._to_device(torch.as_tensor(labels), torch.long)
         n = labels.shape[0]
         p = self.model.patch_size
         h, w = image_height // self.vae_scale, image_width // self.vae_scale
+        valid_t = token_count(h, w, p)
+        lengths = mask_lengths(create_mask(valid_t, self.max_length, 2 * n))
+        pos_np, _ = create_pos_embed(h, w, p, self.max_length, self.model.head_dim)
         if z is None:
             z = self._noise((n, self.model.in_channels, h, w), generator)
-        z = z.to(self.device, torch.float32)
-        pos_np, valid_t = create_pos_embed(h, w, p, self.max_length, self.model.head_dim)
+        z = self._to_device(z, torch.float32)
         seq = max(valid_t, self.max_length)
-        pos = torch.from_numpy(pos_np).to(self.device).expand(2 * n, seq, -1).contiguous()
-        mask = torch.from_numpy(create_mask(valid_t, self.max_length, 2 * n)).to(self.device)
-        out = self._denoise(z, labels, pos, mask, generator)
+        pos = self._to_device(pos_np).expand(2 * n, seq, -1).contiguous()
+        out = self._denoise(z, labels, pos, self._to_device(lengths), generator)
         return unpad_latent(out, valid_t, h, w, p)
 
     @torch.inference_mode()
@@ -145,7 +186,7 @@ class FiTSampler:
         holds one (height, width) in pixels per label, each within the token
         budget. ``z`` (n, C, max_size, max_size) replaces the canvas noise.
         Returns a list of (C, h_i, w_i) latents."""
-        labels = torch.as_tensor(labels, dtype=torch.long, device=self.device)
+        labels = self._to_device(torch.as_tensor(labels), torch.long)
         n = labels.shape[0]
         if len(sizes) != n:
             raise ValueError(f"{len(sizes)} sizes for {n} labels")
@@ -155,21 +196,22 @@ class FiTSampler:
         valid = []
         for i, (ih, iw) in enumerate(sizes):
             h, w = ih // self.vae_scale, iw // self.vae_scale
-            if token_count(h, w, p) > self.max_length:
+            valid_t = token_count(h, w, p)
+            if valid_t > self.max_length:
                 raise ValueError(f"size {ih}x{iw} exceeds the token budget; sample() it alone")
-            tab, valid_t = create_pos_embed(h, w, p, self.max_length, self.model.head_dim)
-            pos[i] = tab[0]
             mask[i, :valid_t] = True
             valid.append((valid_t, h, w))
+        lengths = mask_lengths(np.concatenate([mask, mask]))
+        for i, (_, h, w) in enumerate(valid):
+            pos[i] = create_pos_embed(h, w, p, self.max_length, self.model.head_dim)[0][0]
         shape = (n, self.model.in_channels, self.max_size, self.max_size)
         if z is None:
             z = self._noise(shape, generator)
         elif tuple(z.shape) != shape:
             raise ValueError(f"z {tuple(z.shape)} != {shape}")
-        z = z.to(self.device, torch.float32)
-        pos2 = torch.from_numpy(np.concatenate([pos, pos])).to(self.device)
-        mask2 = torch.from_numpy(np.concatenate([mask, mask])).to(self.device)
-        canvas = self._denoise(z, labels, pos2, mask2, generator)
+        z = self._to_device(z, torch.float32)
+        pos2 = self._to_device(np.concatenate([pos, pos]))
+        canvas = self._denoise(z, labels, pos2, self._to_device(lengths), generator)
         return [
             unpad_latent(canvas[i : i + 1], vt, h, w, p)[0] for i, (vt, h, w) in enumerate(valid)
         ]

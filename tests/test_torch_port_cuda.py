@@ -1,13 +1,22 @@
-"""The CUDA kernel of fit_tpu_torch on the card, held against its plain
-PyTorch version. These tests need a CUDA card and skip elsewhere. The file
+"""The CUDA kernels of fit_tpu_torch on the card, held against their plain
+PyTorch versions. These tests need a CUDA card and skip elsewhere. The file
 imports no jax, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
-Tolerances (max abs error on valid query rows, against the fp32 plain
-version): 1e-4 for fp32 (fp32 FMA dots, another summation order), 3e-2 for
-bf16 (bf16 rounding of the rotated q/k, of p and of the output, the bound
-fit_tpu uses for its bf16 dot kernels).
+Tolerances, against the plain versions on the same inputs:
+- attention (max abs error on valid query rows, against the fp32 plain
+  version): 1e-4 for fp32 (fp32 FMA dots, another summation order), 3e-2
+  for bf16 (bf16 rounding of the rotated q/k, of p and of the output, the
+  bound fit_tpu uses for its bf16 dot kernels);
+- the row kernels with int8 epilogue: codes within one step, on at most
+  1e-3 of them plus one (a LayerNorm sum taken in another order can move a
+  value across a rounding boundary), row scales within 1e-6 relative;
+- the row kernels without it: one bf16 ulp in bf16 (the same fp32 value,
+  rounded once), a value under 2^-8 in magnitude judged at the ulp of 2^-8
+  (where shift + n * (1 + scale) cancels to near zero, fp32 sums taken in
+  another order differ by ~1e-7, many ulps of the tiny result); 1e-5 in
+  fp32 (the LayerNorm sums' order).
 """
 
 import numpy as np
@@ -15,6 +24,7 @@ import pytest
 import torch
 
 from fit_tpu_torch.core.pos_embed import rope_freqs_2d
+from fit_tpu_torch.ops import fused_adaln, quant
 from fit_tpu_torch.ops import rope_attention as ra
 
 
@@ -78,3 +88,96 @@ def test_kernel_rejects_bad_arguments(cuda_device):
         ra.qkv_rope_attention(qkv, cos.transpose(1, 2).contiguous().transpose(1, 2), sin, ones, 0.25, 2)
     with pytest.raises(ValueError, match="int32"):
         ra.qkv_rope_attention(qkv, cos, sin, ones.long(), 0.25, 2)
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in bf16 ulps of want; values under 2^-8 in
+    magnitude are judged at the ulp of 2^-8."""
+    want = want.float()
+    exp = torch.floor(torch.log2(want.abs().clamp_min(2.0**-8)))
+    return ((got.float() - want).abs() / torch.exp2(exp - 7)).max().item()
+
+
+def row_inputs(kind, b, t, width, device, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, t, width), generator=gen, device=device) * 3 + 1
+    if kind == "adaln":  # shift and scale: chunks of a (B, 6D) adaLN output
+        mod = torch.randn((b, 6 * width), generator=gen, device=device).to(dtype)
+        return x.to(dtype), mod[:, :width], mod[:, width : 2 * width]
+    return x.to(dtype), torch.randn((b, t, width), generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("with_quant", [True, False], ids=["int8", "no-quant"])
+@pytest.mark.parametrize(
+    "kind,b,t,width",
+    [
+        ("adaln", 16, 256, 1152),  # XL, batch 8 with CFG
+        ("adaln", 3, 33, 1152),  # ragged row count
+        ("adaln", 2, 5, 8),  # one chunk a row
+        ("adaln", 1, 3, 8192),  # the widest row: 8 chunks a thread
+        ("silu", 16, 256, 3072),  # XL SwiGLU hidden
+        ("silu", 3, 33, 3072),
+        ("silu", 2, 7, 2048),  # FiT-B's hidden
+    ],
+)
+def test_row_kernels_match_plain_versions(cuda_device, kind, b, t, width, with_quant, dtype):
+    args = row_inputs(kind, b, t, width, cuda_device, dtype)
+    quant.reset_launches()
+    fused_adaln.reset_launches()
+    if kind == "adaln":
+        got = quant.adaln_quant(*args) if with_quant else fused_adaln.adaln_modulate(*args)
+        want = quant.adaln_quant(*args, plain=True) if with_quant else fused_adaln.adaln_modulate(*args, plain=True)
+        name = "adaln_quant" if with_quant else "adaln_modulate"
+    else:
+        got = quant.silu_mul_quant(*args) if with_quant else fused_adaln.swiglu_glue(*args)
+        want = quant.silu_mul_quant(*args, plain=True) if with_quant else fused_adaln.swiglu_glue(*args, plain=True)
+        name = "silu_mul_quant" if with_quant else "swiglu_glue"
+    torch.cuda.synchronize()
+    counts = {**quant.launches, **fused_adaln.launches}
+    assert counts == {k: int(k == name) for k in counts}
+    if with_quant:
+        (q, s), (q_ref, s_ref) = got, want
+        assert q.dtype == torch.int8 and q.shape == (b, t, width)
+        assert s.dtype == torch.float32 and s.shape == (b, t, 1)
+        diff = (q.int() - q_ref.int()).abs()
+        assert diff.max().item() <= 1
+        assert (diff > 0).sum().item() <= 1e-3 * diff.numel() + 1
+        torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+    else:
+        assert got.dtype == dtype and got.shape == (b, t, width)
+        if dtype == torch.bfloat16:
+            assert bf16_ulps(got, want) <= 1
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_row_kernels_reject_bad_arguments(cuda_device):
+    x, shift, scale = row_inputs("adaln", 2, 4, 64, cuda_device, torch.float32)
+    quant.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quant.adaln_quant(x[..., :60].contiguous(), shift[:, :60], scale[:, :60])
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.adaln_quant(x.transpose(0, 1).contiguous().transpose(0, 1), shift, scale)
+    with pytest.raises(TypeError):
+        quant.adaln_quant(x, shift.bfloat16(), scale)
+    with pytest.raises(TypeError):
+        quant.silu_mul_quant(x.half(), x.half())
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(2 * 4 * 64 + 1, device=cuda_device)
+        quant.silu_mul_quant(flat[1:].view(2, 4, 64), x)
+    assert quant.launches == {"adaln_quant": 0, "silu_mul_quant": 0}
+
+
+@pytest.mark.cuda
+def test_int8_matmul_on_the_card(cuda_device):
+    """torch._int_mm at a serving shape and below its 17-row minimum (padded)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    w = torch.randint(-127, 128, (3456, 1152), generator=gen, device=cuda_device, dtype=torch.int8)
+    for rows in (4096, 5):
+        xq = torch.randint(-127, 128, (rows, 1152), generator=gen, device=cuda_device, dtype=torch.int8)
+        acc = quant._int_mm(xq, w.t())
+        want = (xq.double() @ w.double().t()).to(torch.int32)  # exact: |sums| < 2^53
+        assert acc.dtype == torch.int32 and torch.equal(acc, want)

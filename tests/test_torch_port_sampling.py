@@ -159,6 +159,23 @@ def test_fit_sampler_ddpm_and_bf16_run(tiny_models):
         s.sample_mixed([0], [(256, 256)])
 
 
+def test_zero_length_row_raises_from_the_sampler(tiny_models):
+    """The sampler checks its masks on the host (no device read-back in the
+    denoise loop); a size with no token still fails before any forward, and
+    a device mask handed to the model is still checked there."""
+    _, _, tm = tiny_models
+    s = FiTSampler(tm, sampler="ddim", **SAMPLER_KW)
+    with pytest.raises(ValueError, match="at least one valid token"):
+        s.sample_mixed([1, 2], [(128, 128), (0, 128)])
+    with pytest.raises(ValueError, match="at least one valid token"):
+        s.sample([1], 0, 128)
+    x = torch.zeros((2, 4, 16, 16))
+    mask = torch.zeros((2, 64), dtype=torch.bool)
+    mask[0, :10] = True
+    with pytest.raises(ValueError, match="at least one valid token"):
+        tm(x, torch.zeros(2), torch.zeros(2, dtype=torch.long), torch.zeros((2, 64, 16)), mask, train=False)
+
+
 def test_port_never_imports_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
