@@ -24,10 +24,19 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      then ``SamplingServer`` behind its HTTP handler on 127.0.0.1 answers
      seeded requests of mixed sizes, checking every response, the
      determinism of a repeated seed, the server's stats and every kernel's
-     launch count.
-The line before the last is a JSON object with each kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
-exits non-zero and prints no result.
+     launch count;
+  6. training: K1's lse output and the backward K2 against their plain
+     versions (and K2 against autograd through the plain forward) from the
+     FiT-B/2 micro-batch to XL at T 4096, with the kernel, plain and SDPA
+     times and the bound; one FiT-B/2 bf16 training step through the
+     kernels against the same step through their plain versions; then the
+     Trainer on synthetic latents: a 6-step pad-packed run, the same run
+     stopped at step 4 and resumed by a fresh Trainer (the loss stream must
+     repeat), and 3 steps of bucket packing, each run's launches asserted.
+The line before the last is a JSON object with each kernel's numbers
+(launches by path: sample, serve, train); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -85,8 +94,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed):
-    """Kernel vs plain on one shape: (max abs err on valid rows, kernel ms, plain ms)."""
+def attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed, yardstick=False):
+    """Kernel vs plain on one shape: (max abs err on valid rows, kernel ms,
+    plain ms), and with ``yardstick`` a dict of the device times of the
+    kernel, its plain version and SDPA's forward, and the bound."""
     b = len(lengths)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
@@ -111,7 +122,300 @@ def attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed):
     )
     if not err <= tol:
         raise AssertionError(f"kernel disagrees with the plain version: {err} > {tol}")
-    return err, ms, plain_ms
+    if not yardstick:
+        return err, ms, plain_ms
+    (bound, by), _ = attention_bounds(b, t, h, d, lengths, dtype, with_lse=False)
+    dev = {
+        "ms": device_ms(lambda: ra.qkv_rope_attention(qkv, cos, sin, lens, scale, h, check_lengths=False)),
+        "plain_ms": device_ms(lambda: ra.rope_attention_reference(qkv, cos, sin, lens, scale, h), iters=5),
+        "library_ms": sdpa_ms(ra, qkv, cos, sin, lens, h, with_bwd=False)[0],
+        "bound_ms": bound,
+        "bound_by": by,
+    }
+    print(
+        f"kernel vs plain, device times (launches queued behind a spin kernel): kernel_us={dev['ms'] * 1e3:.1f} "
+        f"plain_us={dev['plain_ms'] * 1e3:.1f} SDPA_fwd_us={dev['library_ms'] * 1e3:.1f} (excludes RoPE) "
+        f"bound_us={bound * 1e3:.1f} by {by}",
+        flush=True,
+    )
+    return err, ms, plain_ms, dev
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor cores; fp32 FMA
+# K2 against its plain version, per tensor dq / dk / dv: max abs error over
+# max |plain| in bf16 (bf16 rounding of the rotated q/k, of p, of ds and of
+# the stored gradient), and over max(1, max |plain|) in fp32.
+GRAD_REL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+# (H, d, B, T, lengths): FiT-B/2 training micro-batch (the main shape), the
+# small token buckets, and XL's d = 72 from 256^2 to 1024^2; the T 4096 row
+# leaves its last 64-key tile empty, and length 1 is a row of one key.
+GRAD_SHAPES = [
+    (12, 64, 64, 256, [256, 200, 130, 64, 1, 255, 129, 33] * 8),
+    (12, 64, 16, 96, [96, 50, 1, 95] * 4),
+    (12, 64, 16, 32, [32, 17, 1, 31] * 4),
+    (16, 72, 16, 256, [256, 256, 200, 130, 64, 1, 255, 129] * 2),
+    (16, 72, 4, 1024, [1024, 700, 1, 1000]),
+    (16, 72, 2, 2304, [2304, 1500]),
+    (16, 72, 1, 4096, [4000]),
+]
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> "tuple[float, str]":
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_bounds(b, t, h, d, lengths, dtype, with_lse=True):
+    """(K1, K2) bounds for these inputs: each input read once, each output
+    (K1's lse when ``with_lse``) written once; 2 products for the forward
+    and 5 for the backward of 2 * T * len * d each per (row, head),
+    counting only the valid keys."""
+    es = torch.finfo(dtype).bits // 8
+    qkv, tabs, o, lse = b * t * 3 * h * d * es, 2 * b * t * d * 4, b * t * h * d * es, b * t * h * 4
+    pair = sum(2 * t * n * d * h for n in lengths)
+    fwd = bound_ms(qkv + tabs + 4 * b + o + (lse if with_lse else 0), 2 * pair, dtype)
+    bwd = bound_ms(qkv + o + o + lse + tabs + 4 * b + qkv, 5 * pair, dtype)
+    return fwd, bwd
+
+
+def sdpa_ms(ra, qkv, cos, sin, lens, h, with_bwd=True):
+    """The library yardstick, which excludes RoPE: F.scaled_dot_product_attention
+    on pre-rotated q, k (B, H, T, d) with the boolean key mask. Returns the
+    device ms of its forward and (``with_bwd``) of its backward alone."""
+    b, t, w = qkv.shape
+    d = w // 3 // h
+    qr, kr, v = (x.to(qkv.dtype).transpose(1, 2).contiguous() for x in ra._rotated_heads(qkv, cos, sin, h))
+    mask = (torch.arange(t, device=qkv.device)[None, :] < lens[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = device_ms(lambda: sdpa(qr, kr, v, attn_mask=mask, scale=d**-0.5))
+    if not with_bwd:
+        return fwd, None
+    qr, kr, v = (x.requires_grad_(True) for x in (qr, kr, v))
+    out = sdpa(qr, kr, v, attn_mask=mask, scale=d**-0.5)
+    g = torch.randn_like(out)
+    bwd = device_ms(lambda: torch.autograd.grad(out, (qr, kr, v), g, retain_graph=True))
+    return fwd, bwd
+
+
+def attention_grad_case(ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed):
+    """Phase 6a on one shape: K1 with lse and K2 against their plain versions
+    (and K2 against autograd through the plain forward), with device times.
+    Returns a dict of the errors, times and bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype)  # on every row, padded too
+    side = int(np.ceil(t**0.5))
+    fc = torch.from_numpy(rope_freqs_2d(d, side, side)[:t]).float().cuda()
+    cos, sin = (x.expand(b, t, d).contiguous() for x in ra.split_rope_tables(fc))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    scale = d**-0.5
+    out, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, scale, h, with_lse=True)
+    out_plain_kernel = ra.rope_attention_fwd(qkv, cos, sin, lens, scale, h)
+    dqkv = ra.rope_attention_bwd(qkv, g, out, lse, cos, sin, lens, scale, h)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_plain_kernel):
+        raise AssertionError(f"K1's output changes with the lse output at {(b, t, h, d, dtype)}")
+    _, lse_want = ra.rope_attention_reference(qkv, cos, sin, lens, scale, h, with_lse=True)
+    want = ra.rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lens, scale, h).float()
+    q32 = qkv.float().requires_grad_(True)
+    (auto,) = torch.autograd.grad(ra.rope_attention_reference(q32, cos, sin, lens, scale, h), q32, g.float())
+    got = dqkv.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"non-finite K1 lse or K2 output at {(b, t, h, d, dtype)}")
+    c = h * d
+    res = {"lse_err": (lse - lse_want).abs().max().item(), "max_abs_err": (got - want).abs().max().item()}
+    for i, name in enumerate("qkv"):
+        part, ref, ref_auto = (x[..., i * c : (i + 1) * c] for x in (got, want, auto))
+        denom = ref.abs().max().item() if dtype == torch.bfloat16 else max(1.0, ref.abs().max().item())
+        res[f"d{name}_rel"] = (part - ref).abs().max().item() / denom
+        res[f"d{name}_auto_rel"] = (part - ref_auto).abs().max().item() / denom
+    masked = sum(got[i, n:, c:].abs().sum().item() for i, n in enumerate(lengths))
+    lse_tol = GRAD_REL[dtype] * max(1.0, lse_want.abs().max().item())
+    res["fwd_ms"] = device_ms(lambda: ra.rope_attention_fwd(qkv, cos, sin, lens, scale, h, with_lse=True, check_lengths=False))
+    res["bwd_ms"] = device_ms(lambda: ra.rope_attention_bwd(qkv, g, out, lse, cos, sin, lens, scale, h))
+    res["fwd_plain_ms"] = device_ms(lambda: ra.rope_attention_reference(qkv, cos, sin, lens, scale, h, with_lse=True), iters=5)
+    res["bwd_plain_ms"] = device_ms(lambda: ra.rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lens, scale, h), iters=5)
+    res["sdpa_fwd_ms"], res["sdpa_bwd_ms"] = sdpa_ms(ra, qkv, cos, sin, lens, h)
+    (res["fwd_bound_ms"], res["fwd_bound_by"]), (res["bwd_bound_ms"], res["bwd_bound_by"]) = attention_bounds(
+        b, t, h, d, lengths, dtype
+    )
+    errs = " ".join(f"{k}={v:.2e}" for k, v in res.items() if k.endswith("rel"))
+    print(
+        f"K1-lse/K2 vs plain: B={b} T={t} H={h} d={d} {str(dtype).removeprefix('torch.')} "
+        f"lse_err={res['lse_err']:.2e} (tol {lse_tol:.2e}) {errs} (tol {GRAD_REL[dtype]:g}) "
+        f"masked-key dk+dv sum={masked:g}; us: K1-lse {res['fwd_ms'] * 1e3:.1f} "
+        f"(plain {res['fwd_plain_ms'] * 1e3:.1f}, SDPA fwd {res['sdpa_fwd_ms'] * 1e3:.1f}, "
+        f"bound {res['fwd_bound_ms'] * 1e3:.1f} by {res['fwd_bound_by']}), K2 {res['bwd_ms'] * 1e3:.1f} "
+        f"(plain {res['bwd_plain_ms'] * 1e3:.1f}, SDPA bwd {res['sdpa_bwd_ms'] * 1e3:.1f}, "
+        f"bound {res['bwd_bound_ms'] * 1e3:.1f} by {res['bwd_bound_by']}); SDPA excludes RoPE",
+        flush=True,
+    )
+    worst = max(v for k, v in res.items() if k.endswith("rel"))
+    if not (worst <= GRAD_REL[dtype] and res["lse_err"] <= lse_tol and masked == 0):
+        raise AssertionError(f"K1-lse or K2 disagrees with its plain version at {(b, t, h, d, dtype)}")
+    return res
+
+
+# 6b/6c: FiT-B/2 training at 256^2 (T = 256 at patch 2) from synthetic
+# variable-aspect latents, each within the 256-token budget
+TRAIN_LATENTS = [(4, 32, 32), (4, 28, 36), (4, 24, 40), (4, 36, 28)]
+B2_DEPTH, TRAIN_BATCH, TRAIN_ACCUM = 12, 128, 2
+STEP_LOSS_REL, STEP_GRAD_COS, STEP_NORM_REL = 1e-2, 0.99, 5e-2  # one bf16 step, kernels vs plain
+RESUME_ATOL = 1e-6  # the resumed loss stream, should its bits differ
+
+
+def train_step_check(ra, rope_freqs_2d) -> None:
+    """Phase 6b: one FiT-B/2 bf16 micro-batch (64 x T 256, remat on) through
+    the kernels and through their plain versions, on the same random
+    weights, inputs and noise: the loss, and the flat gradient's cosine and
+    norm."""
+    from fit_tpu_torch.diffusion.gaussian import create_diffusion
+    from fit_tpu_torch.models.fit import create_fit
+    from fit_tpu_torch.train.step import diffusion_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    model = create_fit("FiT-B/2", dtype=torch.bfloat16, remat=True, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():  # the reference init zeroes adaLN and the final layer
+            p.normal_(0.0, 0.02, generator=gen)
+    n, t = TRAIN_BATCH // TRAIN_ACCUM, 256
+    pos = torch.zeros((n, t, model.head_dim))
+    mask = torch.zeros((n, t), dtype=torch.bool)
+    for i in range(n):
+        _, h, w = TRAIN_LATENTS[i % len(TRAIN_LATENTS)]
+        tab = torch.from_numpy(rope_freqs_2d(model.head_dim, h // 2, w // 2))
+        pos[i, : len(tab)], mask[i, : len(tab)] = tab, True
+    mask = mask.cuda()
+    batch = {
+        "tokens": torch.randn((n, t, 16), generator=gen, device="cuda") * mask[..., None],
+        "pos": pos.cuda(),
+        "mask": mask,
+        "lengths": mask.sum(-1, dtype=torch.int32),
+        "label": torch.randint(0, 1000, (n,), generator=gen, device="cuda"),
+        "t": torch.randint(0, 1000, (n,), generator=gen, device="cuda"),
+        "noise": torch.randn((n, t, 16), generator=gen, device="cuda"),
+        "drop_ids": (torch.rand((n,), generator=gen, device="cuda") < 0.1).int(),
+    }
+    diffusion = create_diffusion(None)
+
+    def run(plain):
+        model.plain_kernels = plain
+        model.zero_grad(set_to_none=True)
+        loss, _ = diffusion_loss(model, diffusion, batch)
+        loss.backward()
+        return loss.item(), torch.cat([p.grad.flatten().float() for p in model.parameters()])
+
+    try:
+        (loss_k, g_k), (loss_p, g_p) = run(False), run(True)
+    finally:
+        model.plain_kernels = False
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    cos = torch.nn.functional.cosine_similarity(g_k, g_p, dim=0).item()
+    norm_rel = abs(g_k.norm().item() - g_p.norm().item()) / g_p.norm().item()
+    print(
+        f"train step, kernels vs plain kernels: FiT-B/2 bf16 micro-batch {n} x T {t}, remat: loss {loss_k:.6f} vs "
+        f"{loss_p:.6f} rel {rel_loss:.3e} (tol {STEP_LOSS_REL:g}); grad cosine {cos:.6f} (min {STEP_GRAD_COS:g}); "
+        f"grad norm {g_k.norm().item():.5f} vs {g_p.norm().item():.5f} rel {norm_rel:.3e} (tol {STEP_NORM_REL:g})",
+        flush=True,
+    )
+    if not (rel_loss <= STEP_LOSS_REL and cos >= STEP_GRAD_COS and norm_rel <= STEP_NORM_REL and np.isfinite(loss_k)):
+        raise AssertionError("the training step through the kernels disagrees with the plain one")
+
+
+def kernel_launches(ra, quant, fused_adaln) -> dict:
+    """Every kernel's launch count since its module's last reset."""
+    return {"rope_attention_fwd": ra.launches, "rope_attention_bwd": ra.bwd_launches, **quant.launches,
+            **fused_adaln.launches}
+
+
+def trainer_phase(kernel_modules):
+    """Phase 6c: the Trainer on synthetic latents, FiT-B/2 bf16, global batch
+    128 in 2 micro-batches. Pad packing (remat on): a straight 6-step run
+    across the epoch boundary at step 4, and the same in a fresh results
+    directory as fit(4), then a fresh Trainer that resumes to step 6; then 3
+    steps of bucket packing. Asserts the resumed loss stream and every
+    run's launch counts; returns this path's launch counts."""
+    import shutil
+    from pathlib import Path
+
+    from fit_tpu_torch.train.loop import Trainer
+    from fit_tpu_torch.utils.config import TrainConfig
+
+    work = Path("build") / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    for i in range(512):  # 2 classes, 4 MB of fp16 latents
+        d = work / "latents" / f"class{i % 2}"
+        d.mkdir(parents=True, exist_ok=True)
+        np.save(d / f"{i}.npy", rng.normal(size=TRAIN_LATENTS[i % 4]).astype(np.float16))
+
+    def losses(name):
+        with open(work / name / "FiT-B-2_metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        return {r["step"]: (r["train_loss"], r["time"]) for r in recs if "train_loss" in r}
+
+    totals = {k: 0 for k in kernel_launches(*kernel_modules)}
+
+    def run(name, max_steps, packing="pad"):
+        cfg = TrainConfig(
+            feature_path=str(work / "latents"), feature_val_path="", results_dir=str(work / name),
+            model="FiT-B/2", global_batch_size=TRAIN_BATCH, grad_accum=TRAIN_ACCUM, compute_dtype="bfloat16",
+            packing=packing, log_every=1, ckpt_every_epochs=100, num_workers=4,
+        )
+        trainer = Trainer(cfg)
+        seqs = []
+        step_fn = trainer.train_step
+        trainer.train_step = lambda state, batch, g: seqs.append(batch["tokens"].shape[2]) or step_fn(state, batch, g)
+        for mod in kernel_modules:
+            mod.reset_launches()
+        state = trainer.fit(max_steps=max_steps)
+        torch.cuda.synchronize()
+        counts = kernel_launches(*kernel_modules)
+        for k, v in counts.items():
+            totals[k] += v
+        steps = len(seqs)
+        per_step = 2 * B2_DEPTH * TRAIN_ACCUM if packing == "pad" else B2_DEPTH * TRAIN_ACCUM  # remat runs K1 twice
+        want = {k: 0 for k in counts}
+        want.update(rope_attention_fwd=per_step * steps, rope_attention_bwd=B2_DEPTH * TRAIN_ACCUM * steps)
+        if counts != want or state.step != max_steps:
+            raise AssertionError(f"trainer run {name}: step {state.step}, launches {counts}, expected {want}")
+        return seqs, counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, straight_counts = run("straight", 6)
+    peak = torch.cuda.max_memory_allocated()
+    want = losses("straight")
+    times = [want[s][1] - want[s - 1][1] for s in range(2, 7)]
+    step_s = float(np.median(times))
+    _, first_counts = run("split", 4)
+    _, resumed_counts = run("split", 6)
+    got = losses("split")
+    diffs = [abs(got[s][0] - want[s][0]) for s in range(1, 7)]
+    bucket_seqs, bucket_counts = run("bucket", 3, packing="bucket")
+    bucket = losses("bucket")
+    every = [v[0] for v in (*want.values(), *got.values(), *bucket.values())]
+    shutil.rmtree(work, ignore_errors=True)
+    print(
+        f"trainer: FiT-B/2 bf16 256^2 pad packing, global batch {TRAIN_BATCH} = {TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM}, "
+        f"remat: {step_s * 1e3:.2f} ms per optimizer step (median of steps 2-6: "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in times)}), {TRAIN_BATCH / step_s:.2f} img/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; loss {', '.join(f'{want[s][0]:.6f}' for s in range(1, 7))}; launches per run: "
+        f"straight {straight_counts}, fit(4) {first_counts}, resumed to 6 {resumed_counts}",
+        flush=True,
+    )
+    print(
+        f"trainer resume: loss stream max|diff| {max(diffs):.3e} over 6 steps (bit-identical: {max(diffs) == 0.0}); "
+        f"bucket packing 3 steps at T {bucket_seqs}: loss {', '.join(f'{bucket[s][0]:.6f}' for s in (1, 2, 3))}, "
+        f"launches {bucket_counts}",
+        flush=True,
+    )
+    if not (max(diffs) <= RESUME_ATOL and all(np.isfinite(every)) and set(got) == set(range(1, 7))):
+        raise AssertionError("the resumed run did not reproduce the straight run's loss stream")
+    return totals
 
 
 def guided_inputs(sampler_mod, head_dim, sizes, gen):
@@ -204,8 +508,9 @@ def device_ms(fn, iters: int = 20) -> float:
 
 def row_kernel_cases(quant, fused_adaln):
     """Phase 3b: each row kernel against its plain version, bf16, at the
-    XL serving shapes. Returns {name: (max_abs_err, kernel ms, plain ms)}
-    with the device times at batch 8 + CFG (4,096 rows)."""
+    XL serving shapes. Returns {name: (max_abs_err, kernel ms, plain ms,
+    bound ms, bound by)} with the device times and the bound at batch 8 +
+    CFG (4,096 rows)."""
     variants = {
         "adaln_quant": (XL_HIDDEN, True, quant.adaln_quant),
         "adaln_modulate": (XL_HIDDEN, False, fused_adaln.adaln_modulate),
@@ -250,7 +555,14 @@ def row_kernel_cases(quant, fused_adaln):
                 raise AssertionError(f"{name} disagrees with its plain version at {(b, t, width)}: {detail}")
             errs.append(err)
             if (b, t) == ROW_SHAPES[0]:
-                results[name] = (ms, plain_ms)
+                # bytes: each bf16 input read once (shift and scale once per
+                # batch row), the output written once (int8 codes and an fp32
+                # scale per row, or bf16); the arithmetic is far below the ridge
+                rows = b * t
+                reads = rows * width * 2 * (1 if name.startswith("adaln") else 2)
+                reads += 2 * b * width * 2 if name.startswith("adaln") else 0
+                writes = rows * width + rows * 4 if with_quant else rows * width * 2
+                results[name] = (ms, plain_ms, *bound_ms(reads + writes, 0, torch.bfloat16))
         results[name] = (max(errs), *results[name])
     return results
 
@@ -319,7 +631,7 @@ def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
         with ThreadPoolExecutor(len(burst)) as pool:
             responses += list(zip(burst, pool.map(lambda b: post_sample(base, b), burst)))
         wall = time.perf_counter() - t0
-        launches = {"rope_attention_fwd": ra.launches, **quant.launches, **fused_adaln.launches}
+        launches = kernel_launches(ra, quant, fused_adaln)
         with urllib.request.urlopen(f"{base}/stats", timeout=60) as resp:
             stats = json.loads(resp.read())
         with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
@@ -342,8 +654,8 @@ def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
     if health != {"status": "ok"} or stats["served"] != len(responses):
         raise AssertionError(f"/stats served {stats['served']} of {len(responses)}; /healthz {health}")
     batches = stats["batches"]
-    per_step = {"rope_attention_fwd": DEPTH, "adaln_quant": 2 * DEPTH, "silu_mul_quant": DEPTH,
-                "adaln_modulate": 0, "swiglu_glue": 0}
+    per_step = {"rope_attention_fwd": DEPTH, "rope_attention_bwd": 0, "adaln_quant": 2 * DEPTH,
+                "silu_mul_quant": DEPTH, "adaln_modulate": 0, "swiglu_glue": 0}
     expected = {k: v * SERVE_STEPS * batches for k, v in per_step.items()}
     if launches != expected:
         raise AssertionError(f"serving launches {launches}, expected {expected} for {batches} batches")
@@ -384,12 +696,14 @@ def main() -> None:
     print(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # 2. build: one nvcc per source, started together
+    sources = ("rope_attention", "rope_attention_bwd", "row_quant")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(ra._kernel), pool.submit(fused_adaln._lib)]:
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for f in [pool.submit(ra._lib, "rope_attention"), pool.submit(ra._lib, "rope_attention_bwd"),
+                  pool.submit(fused_adaln._lib)]:
             f.result()
     build_s = time.perf_counter() - t0
-    for name in ("rope_attention", "row_quant"):
+    for name in sources:
         ptxas = sorted({
             line.split("ptxas info    : ")[1]
             for log in _build.BUILD_DIR.glob(f"{name}_*.log")
@@ -397,22 +711,22 @@ def main() -> None:
             if "Used" in line and "registers" in line
         })
         print(f"build: {name}.cu; ptxas: {ptxas}", flush=True)
-    print(f"build: both sources in {build_s:.2f} s", flush=True)
+    print(f"build: {len(sources)} sources in {build_s:.2f} s", flush=True)
 
     # 3. kernel vs plain, at the main path's shapes (XL: H=16, d=72; L: d=64)
     padded16 = [256, 256, 200, 130, 64, 1, 255, 129, 256, 256, 224, 180, 256, 33, 2, 256]
     errs = []
-    main_ms = main_plain_ms = None
+    fwd_main = None
     for h, d, t, lengths in [
         (16, 72, 256, padded16),  # 256^2 sampling, batch 8 with CFG
         (16, 72, 1024, [1024, 700]),  # 512^2 extrapolation
         (16, 64, 256, padded16),  # head dim of FiT-S/B/L
     ]:
         for dtype in (torch.bfloat16, torch.float32):
-            err, ms, plain_ms = attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed=len(errs))
-            errs.append(err)
-            if main_ms is None:
-                main_ms, main_plain_ms = ms, plain_ms
+            res = attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed=len(errs), yardstick=fwd_main is None)
+            errs.append(res[0])
+            if fwd_main is None:
+                fwd_main = res[3]
 
     # 3b. the row kernels and the int8 GEMM at XL serving shapes
     rows = row_kernel_cases(quant, fused_adaln)
@@ -447,8 +761,11 @@ def main() -> None:
     t2 = time.perf_counter()
     sample_launches = ra.launches
     expected = DEPTH * STEPS * 2
-    if sample_launches != expected:
-        raise AssertionError(f"kernel launched {sample_launches} times on the main path, expected {expected}")
+    if sample_launches != expected or ra.bwd_launches != 0:
+        raise AssertionError(
+            f"kernels launched {sample_launches} (K1), {ra.bwd_launches} (K2) times on the sampling path, "
+            f"expected {expected}, 0"
+        )
     if tuple(latents.shape) != (BATCH, 4, 32, 32) or not torch.isfinite(latents).all():
         raise AssertionError(f"bad sample output: {tuple(latents.shape)}")
     want_shapes = [(4, ih // 8, iw // 8) for ih, iw in MIXED_SIZES]
@@ -505,26 +822,46 @@ def main() -> None:
     print(f"int8 sampler: FiT-XL/2 256x256 DDIM {STEPS} steps batch {BATCH}: {int8_step_ms:.2f} ms/step, "
           f"{BATCH / (int8_step_ms * STEPS / 1e3):.3f} img/s (bf16: {step_ms:.2f} ms/step)", flush=True)
 
-    serve_launches = serve_phase(qmodel, serve_mod, make_handler, (ra, quant, fused_adaln))
+    kernel_modules = (ra, quant, fused_adaln)
+    serve_launches = serve_phase(qmodel, serve_mod, make_handler, kernel_modules)
+    del qmodel, qsampler
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, err, ms, plain_ms, sample_count=0):
-        serve_count = serve_launches[name]
+    # 6. training: K1's lse and K2 against their plain versions, one FiT-B/2
+    # step with kernels vs plain kernels, then the Trainer (pad, resume, bucket)
+    grads = {}
+    for i, (h, d, b, t, lengths) in enumerate(GRAD_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            grads[(i, dtype)] = attention_grad_case(ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed=100 + i)
+    train_step_check(ra, rope_freqs_2d)
+    train_launches = trainer_phase(kernel_modules)
+    bwd_main = grads[(0, torch.bfloat16)]
+
+    def entry(name, source, replaces, err, ms, plain_ms, bound, bound_by, library_ms=None, sample_count=0):
+        by_path = {"sample": sample_count, "serve": serve_launches[name], "train": train_launches[name]}
         return {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": sample_count + serve_count,
-            "launches_by_path": {"sample": sample_count, "serve": serve_count},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
         }
 
     row_src = "fit_tpu_torch/ops/csrc/row_quant.cu"
     kernels = [
-        entry("rope_attention_fwd", "fit_tpu_torch/ops/csrc/rope_attention.cu",
-              "fit_tpu/ops/fused_attention.py:806", max(errs), main_ms, main_plain_ms, sample_launches),
+        entry("rope_attention_fwd", "fit_tpu_torch/ops/csrc/rope_attention.cu", "fit_tpu/ops/fused_attention.py:806",
+              max(errs), fwd_main["ms"], fwd_main["plain_ms"], fwd_main["bound_ms"], fwd_main["bound_by"],
+              fwd_main["library_ms"], sample_launches),
+        entry("rope_attention_bwd", "fit_tpu_torch/ops/csrc/rope_attention_bwd.cu",
+              "fit_tpu/ops/fused_attention.py:1173", bwd_main["max_abs_err"], bwd_main["bwd_ms"],
+              bwd_main["bwd_plain_ms"], bwd_main["bwd_bound_ms"], bwd_main["bwd_bound_by"], bwd_main["sdpa_bwd_ms"]),
         entry("adaln_quant", row_src, "fit_tpu/ops/quant.py:184", *rows["adaln_quant"]),
         entry("silu_mul_quant", row_src, "fit_tpu/ops/quant.py:148", *rows["silu_mul_quant"]),
         entry("adaln_modulate", row_src, "fit_tpu/ops/fused_adaln.py:29", *rows["adaln_modulate"]),

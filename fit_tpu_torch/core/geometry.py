@@ -3,16 +3,22 @@
 Counterpart of ``fit_tpu/core/geometry.py``. Latents are ``(N, C, H, W)``;
 token sequences are ``(N, T, p*p*C)``, row-major over the ``(H/p, W/p)``
 patch grid, with channel the fastest axis inside a token.
+:func:`patchify_np` is the data pipeline's single-latent numpy version.
 """
 
 from __future__ import annotations
 
+from typing import Union
+
+import numpy as np
 import torch
 
 __all__ = [
     "token_count",
     "patchify",
     "unpatchify",
+    "patchify_np",
+    "pad_tokens",
     "pad_latent_to_canvas",
     "unpad_latent",
 ]
@@ -39,6 +45,25 @@ def unpatchify(x: torch.Tensor, h: int, w: int, patch_size: int, channels: int) 
     nh, nw = h // p, w // p
     x = x.reshape(n, nh, nw, p, p, channels).permute(0, 5, 1, 3, 2, 4)
     return x.reshape(n, channels, nh * p, nw * p)
+
+
+def patchify_np(latent: np.ndarray, patch_size: int) -> np.ndarray:
+    """Host-side single-latent patchify: (C, H, W) -> (T, p*p*C), numpy."""
+    c, h, w = latent.shape
+    p = patch_size
+    nh, nw = h // p, w // p
+    latent = latent.reshape(c, nh, p, nw, p).transpose(1, 3, 2, 4, 0)  # (nh, nw, p, p, c)
+    return latent.reshape(nh * nw, p * p * c)
+
+
+def pad_tokens(tokens: Union[torch.Tensor, np.ndarray], max_length: int) -> torch.Tensor:
+    """Zero-pad a (T, D) token array to (max_length, D) along the token
+    axis, or cut it to its first ``max_length`` tokens."""
+    tokens = torch.as_tensor(tokens)
+    t = tokens.shape[0]
+    if t >= max_length:
+        return tokens[:max_length]
+    return torch.cat([tokens, tokens.new_zeros((max_length - t,) + tuple(tokens.shape[1:]))])
 
 
 def pad_latent_to_canvas(

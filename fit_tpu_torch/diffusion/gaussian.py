@@ -1,8 +1,10 @@
-"""Gaussian diffusion: the q/p math sampling needs, in torch.
+"""Gaussian diffusion: the q/p math of sampling and training, in torch.
 
-Counterpart of ``fit_tpu/diffusion/gaussian.py`` for what sampling needs:
-eps prediction with FIXED_LARGE or (``learn_sigma``) LEARNED_RANGE
-variance, DDPM and DDIM steps, timestep respacing. The coefficient tables
+Counterpart of ``fit_tpu/diffusion/gaussian.py`` for what sampling and
+training need: eps prediction with FIXED_LARGE or (``learn_sigma``)
+LEARNED_RANGE variance, DDPM and DDIM steps, timestep respacing, the
+forward process ``q_sample`` and the masked eps-MSE training loss (the VLB
+terms of ``learn_sigma`` training are not ported). The coefficient tables
 are float64 numpy; a step indexes a table and rounds the value to float32,
 as ``fit_tpu`` does. Each table is copied to a device once and indexed
 there, so a sampling loop makes no host round trip.
@@ -22,7 +24,13 @@ from fit_tpu_torch.core.schedules import (
     space_timesteps,
 )
 
-__all__ = ["GaussianDiffusion", "create_diffusion"]
+__all__ = [
+    "GaussianDiffusion",
+    "create_diffusion",
+    "mean_flat",
+    "masked_mean_flat",
+    "masked_global_mse",
+]
 
 ModelFn = Callable[..., torch.Tensor]
 
@@ -33,6 +41,33 @@ def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     return vals.reshape(vals.shape + (1,) * (ndim - 1))
 
 
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Per-sample mean over every axis but the first."""
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
+def masked_mean_flat(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-sample mean over valid elements only; ``mask`` (N, T) boolean is
+    broadcast over the trailing axes of ``x`` (N, T, ...)."""
+    if mask is None:
+        return mean_flat(x)
+    m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())).to(x.dtype)
+    axes = tuple(range(1, x.dim()))
+    num = m.sum(dim=axes).clamp(min=1.0)
+    per_token = float(np.prod(x.shape[mask.dim():])) if x.dim() > mask.dim() else 1.0
+    return (x * m).sum(dim=axes) / (num * per_token)
+
+
+def masked_global_mse(model_output: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """One mean of the squared error over every valid element of the batch:
+    the reference training step's ``F.mse_loss(out[mask], noise[mask])``."""
+    m = mask.reshape(mask.shape + (1,) * (model_output.dim() - mask.dim()))
+    se = torch.where(m, (model_output - target) ** 2, 0.0)
+    per_token = float(np.prod(model_output.shape[mask.dim():])) if model_output.dim() > mask.dim() else 1.0
+    denom = m.to(se.dtype).sum() * per_token
+    return se.sum() / denom.clamp(min=1.0)
+
+
 class GaussianDiffusion:
     """A (possibly respaced) Gaussian diffusion process over an eps model.
 
@@ -40,7 +75,8 @@ class GaussianDiffusion:
     that interpolates the log variance (LEARNED_RANGE); otherwise the
     variance is FIXED_LARGE. ``timestep_map`` maps local step indices to
     the base process's timesteps, which the model was trained on (``None``:
-    not respaced).
+    not respaced). ``original_num_steps`` is the base process's length (the
+    range training draws timesteps from).
     """
 
     def __init__(
@@ -48,10 +84,12 @@ class GaussianDiffusion:
         betas: np.ndarray,
         learn_sigma: bool = False,
         timestep_map: Optional[np.ndarray] = None,
+        original_num_steps: Optional[int] = None,
     ):
         self.betas = np.asarray(betas, dtype=np.float64)
         self.learn_sigma = learn_sigma
         self.timestep_map = timestep_map
+        self.original_num_steps = len(self.betas) if original_num_steps is None else original_num_steps
         self.c = compute_coefficients(self.betas)
         self._device_tables: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
@@ -66,6 +104,8 @@ class GaussianDiffusion:
                 host = torch.from_numpy(self.timestep_map.astype(np.int64))
             elif name == "log_betas":
                 host = torch.from_numpy(np.log(self.c.betas).astype(np.float32))
+            elif name == "one_minus_alphas_cumprod":
+                host = torch.from_numpy((1.0 - self.c.alphas_cumprod).astype(np.float32))
             else:
                 host = torch.from_numpy(getattr(self.c, name).astype(np.float32))
             self._device_tables[key] = host.to(device)
@@ -83,6 +123,31 @@ class GaussianDiffusion:
             return model_fn(x, self._table("timestep_map", ts.device)[ts], **kwargs)
 
         return wrapped
+
+    def q_mean_variance(self, x_start, t):
+        """Moments of q(x_t | x_0): mean, variance, log variance."""
+        nd = x_start.dim()
+        mean = self._x("sqrt_alphas_cumprod", t, nd) * x_start
+        return mean, self._x("one_minus_alphas_cumprod", t, nd), self._x("log_one_minus_alphas_cumprod", t, nd)
+
+    def q_sample(self, x_start, t, noise):
+        """A draw of q(x_t | x_0) with the given noise."""
+        nd = x_start.dim()
+        return (
+            self._x("sqrt_alphas_cumprod", t, nd) * x_start
+            + self._x("sqrt_one_minus_alphas_cumprod", t, nd) * noise
+        )
+
+    def training_losses(self, model_fn: ModelFn, x_start, t, noise, mask=None) -> dict:
+        """Training loss terms for the eps-prediction MSE: ``mse`` (and
+        ``loss``) are per-sample means of the squared error over the valid
+        tokens (``mask`` (N, T)). The VLB term of ``learn_sigma`` is not
+        ported and raises."""
+        if self.learn_sigma:
+            raise NotImplementedError("the VLB loss of learn_sigma training is not ported")
+        x_t = self.q_sample(x_start, t, noise)
+        mse = masked_mean_flat((noise - model_fn(x_t, t)) ** 2, mask)
+        return {"mse": mse, "loss": mse}
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
         mean = (
@@ -181,4 +246,5 @@ def create_diffusion(
         new_betas,
         learn_sigma=learn_sigma,
         timestep_map=tmap if len(keep) != diffusion_steps else None,
+        original_num_steps=diffusion_steps,
     )

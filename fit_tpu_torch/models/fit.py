@@ -9,7 +9,8 @@ sequences with per-token 2D RoPE tables and a prefix validity mask.
 compute dtype once, and until then each projection casts on the fly.
 ``quant="int8"`` builds the w8a8 serving model (``fit_tpu_torch.ops.quant``):
 its int8 weights come from ``quantize_params`` / ``quantize_model``, never
-from init or training.
+from init or training. ``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``), as ``fit_tpu``'s ``nn.remat(FiTBlock)``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fit_tpu_torch.core.geometry import patchify, unpatchify
 from fit_tpu_torch.models.layers import (
@@ -28,6 +30,7 @@ from fit_tpu_torch.models.layers import (
     linear,
 )
 from fit_tpu_torch.ops.rope_attention import split_rope_tables
+from fit_tpu_torch.utils.device import resolve_device
 
 __all__ = ["FiT", "FiT_models", "create_fit", "lengths_from_mask"]
 
@@ -58,6 +61,9 @@ class FiT(nn.Module):
     ``lengths``: ``(N,)`` int32 prefix lengths, each at least 1, in place
     of ``mask`` (checked by the caller; no host round trip).
 
+    ``generator``: the draws of training-mode label dropout (on the
+    labels' device); ``force_drop_ids`` (N,) replaces them (1 = null class).
+
     ``quant``: "none", or "int8" for the w8a8 serving path. Setting
     ``plain_kernels`` routes every kernel wrapper (attention and the int8
     epilogues) to its plain PyTorch version on any device: the on-card
@@ -77,7 +83,9 @@ class FiT(nn.Module):
         learn_sigma: bool = False,
         quant: str = "none",
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
         device=None,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         if quant not in ("none", "int8"):
@@ -85,7 +93,7 @@ class FiT(nn.Module):
         self.config = dict(
             patch_size=patch_size, in_channels=in_channels, hidden_size=hidden_size, depth=depth,
             num_heads=num_heads, mlp_ratio=mlp_ratio, class_dropout_prob=class_dropout_prob,
-            num_classes=num_classes, learn_sigma=learn_sigma, quant=quant, dtype=dtype,
+            num_classes=num_classes, learn_sigma=learn_sigma, quant=quant, dtype=dtype, remat=remat,
         )
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -96,6 +104,7 @@ class FiT(nn.Module):
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.quant = quant
         self.dtype = dtype
+        self.remat = remat
         self.plain_kernels = False
 
         self.x_embedder = nn.Linear(patch_size * patch_size * in_channels, hidden_size, device=device)
@@ -105,24 +114,25 @@ class FiT(nn.Module):
             FiTBlock(hidden_size, num_heads, mlp_ratio, quant, device=device) for _ in range(depth)
         )
         self.final = FinalLayer(hidden_size, patch_size, self.out_channels, device=device)
-        self.reset_parameters()
+        self.reset_parameters(generator)
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
     @torch.no_grad()
-    def reset_parameters(self) -> None:
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Reference init: xavier-uniform Linear weights and zero biases,
         normal(0.02) embedders, zero adaLN and final projection (so an
-        untrained model predicts eps = 0)."""
+        untrained model predicts eps = 0). The draws come from ``generator``
+        (on the parameters' device) when one is given."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                nn.init.xavier_uniform_(m.weight)
+                nn.init.xavier_uniform_(m.weight, generator=generator)
                 nn.init.zeros_(m.bias)
         for m in (self.t_embedder.fc1, self.t_embedder.fc2):
-            nn.init.normal_(m.weight, std=0.02)
-        nn.init.normal_(self.y_embedder.table.weight, std=0.02)
+            nn.init.normal_(m.weight, std=0.02, generator=generator)
+        nn.init.normal_(self.y_embedder.table.weight, std=0.02, generator=generator)
         for m in [blk.adaLN for blk in self.blocks] + [self.final.adaLN, self.final.linear]:
             nn.init.zeros_(m.weight)
             nn.init.zeros_(m.bias)
@@ -137,6 +147,8 @@ class FiT(nn.Module):
         train: bool = True,
         *,
         lengths: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        force_drop_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         if not train:
             h, w = x.shape[-2:]
@@ -146,9 +158,15 @@ class FiT(nn.Module):
         cos, sin = split_rope_tables(pos)
         if lengths is None:
             lengths = lengths_from_mask(mask, n, seq, x.device)
-        c = self.t_embedder(t, self.dtype) + self.y_embedder(y, train, self.dtype)
+        c = self.t_embedder(t, self.dtype) + self.y_embedder(
+            y, train, self.dtype, force_drop_ids=force_drop_ids, generator=generator
+        )
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, c, cos, sin, lengths, self.plain_kernels)
+            if remat:
+                x = checkpoint(blk, x, c, cos, sin, lengths, self.plain_kernels, use_reentrant=False)
+            else:
+                x = blk(x, c, cos, sin, lengths, self.plain_kernels)
         x = self.final(x, c)
         if not train:
             x = unpatchify(x.float(), h, w, self.patch_size, self.out_channels)
@@ -169,11 +187,15 @@ class FiT(nn.Module):
 _SIZES = {"XL": (28, 1152, 16), "L": (24, 1024, 16), "B": (12, 768, 12), "S": (12, 384, 6)}
 
 
-def create_fit(name: str, **kwargs) -> FiT:
-    """A FiT by registry name, e.g. ``create_fit("FiT-XL/2", dtype=torch.bfloat16)``."""
+def create_fit(name: str, device="cuda", **kwargs) -> FiT:
+    """A FiT by registry name, e.g. ``create_fit("FiT-XL/2", dtype=torch.bfloat16)``,
+    built on the card unless ``device`` names another (``"cpu"``, ``"meta"``)."""
     size, patch = name.removeprefix("FiT-").split("/")
     depth, hidden, heads = _SIZES[size]
-    return FiT(depth=depth, hidden_size=hidden, num_heads=heads, patch_size=int(patch), **kwargs)
+    return FiT(
+        depth=depth, hidden_size=hidden, num_heads=heads, patch_size=int(patch),
+        device=resolve_device(device), **kwargs,
+    )
 
 
 FiT_models = {

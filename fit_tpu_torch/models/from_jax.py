@@ -9,16 +9,24 @@ scan-over-layers (``blocks/block`` with a leading depth axis). A tree from
 kernels stay int8 and each ``kernel_scale`` stays fp32, the grouped qkv
 scale ``(3, C)`` flattened to ``(3C,)``. The tree must hold numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module never imports jax.
+
+:func:`torch_train_state_from_flax` carries a whole ``fit_tpu`` train
+state (params, EMA shadow, and the Adam moments and count of its optax
+AdamW or stochastic-rounding Adam) into the port's model, EMA and
+optimizer state, so training resumes in the port where ``fit_tpu`` left off.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["torch_state_dict_from_flax"]
+from fit_tpu_torch.train.state import AdamSR, TrainState, create_train_state
+
+__all__ = ["torch_state_dict_from_flax", "torch_train_state_from_flax"]
 
 
 def _leaf_entries(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
@@ -64,3 +72,41 @@ def _index_tree(node: Mapping, i: int):
     if isinstance(node, Mapping):
         return {k: _index_tree(v, i) for k, v in node.items()}
     return np.asarray(node)[i]
+
+
+def torch_train_state_from_flax(
+    jax_state: Any,
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    ema_dtype: torch.dtype = torch.float32,
+) -> TrainState:
+    """A ``fit_tpu`` ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port's :class:`TrainState`.
+
+    ``jax_state`` has ``step``, ``params``, ``ema_params`` and
+    ``opt_state``, whose first item holds the Adam ``count``, ``mu`` and
+    ``nu`` (optax's ``ScaleByAdamState`` or ``scale_by_adam_sr``'s state);
+    unrolled and scan-stacked trees both carry. ``model`` receives the
+    params; ``optimizer`` (over ``model.parameters()``: ``torch.optim.AdamW``,
+    or ``AdamSR`` for bf16 moments) receives ``exp_avg``, ``exp_avg_sq`` and
+    ``step``; the EMA shadow is kept in ``ema_dtype``.
+    """
+    depth = model.depth
+    device = next(model.parameters()).device
+    model.load_state_dict(torch_state_dict_from_flax(jax_state.params, depth))
+    state = create_train_state(model, optimizer, ema_dtype)
+    with torch.no_grad():
+        for name, value in torch_state_dict_from_flax(jax_state.ema_params, depth).items():
+            state.ema[name].copy_(value)
+    adam = jax_state.opt_state[0]
+    mu = torch_state_dict_from_flax(adam.mu, depth)
+    nu = torch_state_dict_from_flax(adam.nu, depth)
+    moment_dtype = torch.bfloat16 if isinstance(optimizer, AdamSR) else torch.float32
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32),
+            "exp_avg": mu[name].to(device, moment_dtype),
+            "exp_avg_sq": nu[name].to(device, moment_dtype),
+        }
+    state.step = int(np.asarray(jax_state.step))
+    return state

@@ -105,7 +105,13 @@ class TimestepEmbedder(nn.Module):
 
 
 class LabelEmbedder(nn.Module):
-    """Class-label embedding; row ``num_classes`` is the CFG null class."""
+    """Class-label embedding; row ``num_classes`` is the CFG null class.
+
+    In training mode each label is dropped to the null class with
+    probability ``dropout_prob``, drawn from the ``generator`` the caller
+    passes (on the labels' device), as ``fit_tpu`` draws from its explicit
+    ``label_dropout`` stream; ``force_drop_ids`` (1 = drop) replaces the draw.
+    """
 
     def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float, device=None):
         super().__init__()
@@ -119,11 +125,14 @@ class LabelEmbedder(nn.Module):
         train: bool,
         dtype: torch.dtype,
         force_drop_ids: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         if force_drop_ids is not None:
             labels = torch.where(force_drop_ids == 1, self.num_classes, labels)
         elif train and self.dropout_prob > 0:
-            u = torch.rand(labels.shape, device=labels.device)
+            if generator is None:
+                raise ValueError("training-mode label dropout draws from a generator: pass generator=")
+            u = torch.rand(labels.shape, generator=generator, device=labels.device)
             labels = torch.where(u < self.dropout_prob, self.num_classes, labels)
         return self.table(labels).to(dtype)
 
@@ -154,8 +163,9 @@ class SelfAttention(nn.Module):
     """Multi-head self-attention with 2D RoPE and a prefix key mask.
 
     One flat qkv projection ``(D -> 3D)`` whose ``[q | k | v]`` output goes
-    as it is into :func:`qkv_rope_attention`: the CUDA kernel on the card,
-    its plain version on the CPU or with ``plain=True``. Under
+    as it is into :func:`qkv_rope_attention`: the CUDA kernels on the card
+    (the forward, and the backward when training), their plain versions on
+    the CPU or with ``plain=True``. Under
     ``quant="int8"`` qkv and proj are ``Int8Linear``s; qkv's (3C, D) weight
     and (3C,) scale are ``fit_tpu``'s grouped (D, 3, C) and (3, C) flattened.
     """

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). The build happens at first use, into
 ``build/fit_tpu_torch/`` at the repository root, and the library is named by
-a hash of its source and flags, so an edited source builds anew. Importing
+a hash of its source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source builds anew. Importing
 this module needs no ``nvcc``; :func:`load` raises if there is none.
 """
 
@@ -54,7 +55,9 @@ def load(name: str) -> ctypes.CDLL:
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers count too: an edited header builds every source anew
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{name}_{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,219 @@
+// Tile helpers shared by the RoPE-attention forward (rope_attention.cu) and
+// backward (rope_attention_bwd.cu): 16-byte vector moves, the rotated and
+// plain tile loads from the (B, T, 3C) qkv projection, and the two per-warp
+// WMMA products (scores = A B^T and acc += P V) that both directions are
+// built from.
+//
+// A block has 4 warps and works on 64-row tiles; each warp owns 16 rows.
+// Tiles hold a head dim padded to DP (a multiple of 16) in shared memory;
+// padded columns and rows past the valid range are zero.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kBlockQ = 64;  // query rows per block
+constexpr int kBlockK = 64;  // keys per inner-loop tile (== kBlockQ: tile loaders are shared)
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 16: one WMMA row tile per warp
+constexpr int kLdS = kBlockK + 4;  // fp32 score row stride, off the 32-bank period
+
+// Shared-memory row strides for a head dim padded to DP: the q/k/v tiles
+// (DP + 8 elements) and the fp32 accumulators (DP + 4 floats) are padded so
+// that consecutive rows start on different banks. A tile of probabilities
+// (or score gradients) in T is written over the fp32 scores it came from,
+// row for row.
+template <typename T, int DP>
+struct Strides {
+  static constexpr int kTile = DP + 8;
+  static constexpr int kOut = DP + 4;
+  static constexpr int kP = kLdS * sizeof(float) / sizeof(T);
+};
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
+
+// 8 consecutive elements <-> 8 floats, as 16-byte vectors (the pointer is
+// 16-byte aligned: d and every column offset are multiples of 8 elements).
+__device__ __forceinline__ void load8(float (&o)[8], const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(float (&o)[8], const bf16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    o[2 * j] = f.x;
+    o[2 * j + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&o)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float (&o)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(o[2 * j], o[2 * j + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// Copies (or zeroes, when src is null) 8 elements as raw 16-byte words.
+template <typename T>
+__device__ __forceinline__ void copy8(T* dst, const T* src) {
+  constexpr int kWords = 8 * sizeof(T) / 16;
+  uint4 w[kWords];
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) w[k] = src ? reinterpret_cast<const uint4*>(src)[k] : make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) reinterpret_cast<uint4*>(dst)[k] = w[k];
+}
+
+// Rows [row0, row0 + 64) of one head's q or k block (columns col0..col0+d),
+// rotated pair by pair and multiplied by `mul`, into a (64, DP) tile with
+// row stride Strides::kTile. Rows at or past `valid` and columns at or past d
+// are zero.
+template <typename T, int DP>
+__device__ __forceinline__ void load_rotated(T* dst, const T* src, const float* cos_b,
+                                             const float* sin_b, int64_t row_stride, int col0,
+                                             int row0, int valid, int d, float mul) {
+  constexpr int kChunksPerRow = DP / 8;
+  static_assert((kBlockQ * kChunksPerRow) % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < kBlockQ * kChunksPerRow / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunksPerRow;
+    const int c = (i % kChunksPerRow) * 8;
+    const int row = row0 + r;
+    float o[8];
+    if (row < valid && c < d) {
+      float x[8], cs[8], sn[8];
+      const int64_t t = static_cast<int64_t>(row) * d + c;
+      load8(x, src + row * row_stride + col0 + c);
+      load8(cs, cos_b + t);
+      load8(sn, sin_b + t);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        o[j] = (x[j] * cs[j] - x[j + 1] * sn[j]) * mul;
+        o[j + 1] = (x[j + 1] * cs[j + 1] + x[j] * sn[j + 1]) * mul;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = 0.f;
+    }
+    store8(dst + r * Strides<T, DP>::kTile + c, o);
+  }
+}
+
+// Rows [row0, row0 + 64) of a (rows, row_stride) matrix, columns
+// col0..col0+d, into a (64, DP) tile, zero past `valid` rows and d columns
+// (a zero row keeps 0 * garbage out of the products).
+template <typename T, int DP>
+__device__ __forceinline__ void load_plain(T* dst, const T* src, int64_t row_stride, int col0,
+                                           int row0, int valid, int d) {
+  constexpr int kChunksPerRow = DP / 8;
+#pragma unroll
+  for (int it = 0; it < kBlockK * kChunksPerRow / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunksPerRow;
+    const int c = (i % kChunksPerRow) * 8;
+    const int row = row0 + r;
+    copy8(dst + r * Strides<T, DP>::kTile + c,
+          (row < valid && c < d) ? src + row * row_stride + col0 + c : nullptr);
+  }
+}
+
+// sw (16, kBlockK) fp32 = aw (16, DP) @ bs (kBlockK, DP)^T, for one warp.
+template <typename T, int DP>
+__device__ __forceinline__ void warp_scores(float* sw, const T* aw, const T* bs) {
+  constexpr int ld = Strides<T, DP>::kTile;
+  if constexpr (std::is_same<T, bf16>::value) {
+    using namespace nvcuda;
+#pragma unroll
+    for (int n = 0; n < kBlockK; n += 16) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int k = 0; k < DP; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
+        wmma::load_matrix_sync(a, aw + k, ld);
+        wmma::load_matrix_sync(bt, bs + n * ld + k, ld);
+        wmma::mma_sync(acc, a, bt, acc);
+      }
+      wmma::store_matrix_sync(sw + n, acc, kLdS, wmma::mem_row_major);
+    }
+  } else {
+    const int lane = threadIdx.x % 32;
+    for (int e = lane; e < kRowsPerWarp * kBlockK; e += 32) {
+      const int r = e / kBlockK;
+      const int j = e % kBlockK;
+      float acc = 0.f;
+#pragma unroll 16
+      for (int c = 0; c < DP; ++c) acc += aw[r * ld + c] * bs[j * ld + c];
+      sw[r * kLdS + j] = acc;
+    }
+  }
+}
+
+// ow (16, DP) fp32 += pw (16, kBlockK) @ vs (kBlockK, DP), for one warp.
+template <typename T, int DP>
+__device__ __forceinline__ void warp_accumulate_pv(float* ow, const T* pw, const T* vs) {
+  using S = Strides<T, DP>;
+  if constexpr (std::is_same<T, bf16>::value) {
+    using namespace nvcuda;
+#pragma unroll
+    for (int n = 0; n < DP; n += 16) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::load_matrix_sync(acc, ow + n, S::kOut, wmma::mem_row_major);
+#pragma unroll
+      for (int k = 0; k < kBlockK; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+        wmma::load_matrix_sync(a, pw + k, S::kP);
+        wmma::load_matrix_sync(bv, vs + k * S::kTile + n, S::kTile);
+        wmma::mma_sync(acc, a, bv, acc);
+      }
+      wmma::store_matrix_sync(ow + n, acc, S::kOut, wmma::mem_row_major);
+    }
+  } else {
+    const int lane = threadIdx.x % 32;
+    for (int e = lane; e < kRowsPerWarp * DP; e += 32) {
+      const int r = e / DP;
+      const int c = e % DP;
+      float acc = ow[r * S::kOut + c];
+#pragma unroll 16
+      for (int j = 0; j < kBlockK; ++j) acc += pw[r * S::kP + j] * vs[j * S::kTile + c];
+      ow[r * S::kOut + c] = acc;
+    }
+  }
+}
+
+}  // namespace

@@ -1,13 +1,27 @@
-"""Fused 2D-RoPE + prefix-masked attention over the raw qkv projection.
+"""Fused 2D-RoPE + prefix-masked attention over the raw qkv projection, and
+its backward.
 
 Counterpart of the public API of ``fit_tpu/ops/fused_attention.py``:
 :func:`split_rope_tables`, the rotation ``(a, b) -> (-b, a)`` on interleaved
 pairs, and :func:`qkv_rope_attention` with the signature and layout of
-``qkv_rope_flash_attention``. On a CUDA tensor the wrapper launches the
-hand-written kernel ``csrc/rope_attention.cu`` or raises; on a CPU tensor
-(or with ``plain=True``) it runs :func:`rope_attention_reference`, the plain
-PyTorch version of the same function. There is no fallback from the kernel
-to the plain version.
+``qkv_rope_flash_attention``, differentiable as its ``jax.custom_vjp`` is.
+
+Two kernels, each behind its own wrapper and launch count:
+
+* K1, :func:`rope_attention_fwd` -> ``csrc/rope_attention.cu``: the forward,
+  optionally with each row's log2-sum-exp ``lse2`` (B, T, H) fp32, the
+  residual of the backward (``_qkv_forward_chunked(..., with_lse=True)``).
+* K2, :func:`rope_attention_bwd` -> ``csrc/rope_attention_bwd.cu``: dqkv
+  (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T.
+
+:func:`qkv_rope_attention` is a ``torch.autograd.Function`` over the pair
+when a gradient is wanted (K1 with lse, then K2), and K1 alone without lse
+otherwise (``torch.inference_mode``, ``no_grad``, or an input that needs no
+gradient). On a CUDA tensor a wrapper launches its kernel or raises; on a
+CPU tensor (or with ``plain=True``) it runs the plain PyTorch version of the
+same formulas, :func:`rope_attention_reference` and
+:func:`rope_attention_backward_reference`. There is no fallback from a
+kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -15,6 +29,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from fit_tpu_torch.ops import _build
 
@@ -22,20 +37,27 @@ __all__ = [
     "split_rope_tables",
     "rotate_pairs",
     "rope_attention_reference",
+    "rope_attention_backward_reference",
+    "rope_attention_fwd",
+    "rope_attention_bwd",
     "qkv_rope_attention",
     "launches",
+    "bwd_launches",
     "reset_launches",
 ]
 
 LOG2_E = 1.4426950408889634  # softmax as exp2 with log2(e) folded into q
 
-# Kernel launches made by qkv_rope_attention since the last reset_launches().
+# Launches of K1 (rope_attention_fwd) and of K2 (rope_attention_bwd) since
+# the last reset_launches().
 launches = 0
+bwd_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, bwd_launches
     launches = 0
+    bwd_launches = 0
 
 
 def split_rope_tables(freqs_cis: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
@@ -58,6 +80,23 @@ def _flat_qkv(qkv: torch.Tensor) -> torch.Tensor:
     return qkv
 
 
+def _rotated_heads(qkv, cos, sin, num_heads):
+    """fp32 (B, T, H, d) rope(q), rope(k) and v of a (B, T, 3C) projection."""
+    b, t, w = qkv.shape
+    d = w // 3 // num_heads
+    q, k, v = qkv.float().reshape(b, t, 3, num_heads, d).unbind(2)
+    cos_h, sin_h = cos.float()[:, :, None, :], sin.float()[:, :, None, :]
+    qr = q * cos_h + rotate_pairs(q) * sin_h
+    kr = k * cos_h + rotate_pairs(k) * sin_h
+    return qr, kr, v
+
+
+def _valid_keys(lengths, t, device) -> torch.Tensor:
+    """(B, 1, 1, T) mask of the keys below each row's length."""
+    valid = torch.arange(t, device=device)[None, :] < lengths.to(device)[:, None]
+    return valid[:, None, None, :]
+
+
 def rope_attention_reference(
     qkv: torch.Tensor,
     cos: torch.Tensor,
@@ -65,27 +104,73 @@ def rope_attention_reference(
     lengths: torch.Tensor,
     scale: float,
     num_heads: int,
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, all math in fp32.
+    *,
+    with_lse: bool = False,
+):
+    """Plain PyTorch version of K1, all math in fp32.
 
     Softmax runs over the valid keys ``< lengths[b]`` for every query row,
     padded rows included, as the fused family does. Returns (B, T, C) in
-    qkv's dtype.
+    qkv's dtype, and with ``with_lse`` also ``lse2`` (B, T, H) fp32: the
+    log2-sum-exp of each row's scores in the exp2 domain, so that
+    ``softmax = exp2(scores * log2(e) - lse2)``.
+    """
+    qkv = _flat_qkv(qkv)
+    b, t, w = qkv.shape
+    qr, kr, v = _rotated_heads(qkv, cos, sin, num_heads)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qr, kr) * scale
+    scores = scores.masked_fill(~_valid_keys(lengths, t, qkv.device), float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, t, w // 3).to(qkv.dtype)
+    if not with_lse:
+        return out
+    lse2 = (torch.logsumexp(scores, dim=-1) * LOG2_E).transpose(1, 2).contiguous()
+    return out, lse2
+
+
+def rope_attention_backward_reference(
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2, all math in fp32: the VJP of K1 at
+    ``qkv`` for the upstream gradient ``g`` (B, T, C), from the forward's
+    ``out`` and ``lse2``. Returns dqkv (B, T, 3C) in qkv's dtype.
+
+    p = exp2(s2 - lse2) over the valid keys (s2 the scores times log2(e)),
+    dv = p^T g, ds = p (g v^T - rowsum(g out)), dq_r = ds k_r scale,
+    dk_r = ds^T q_r scale, and the RoPE VJP ``x cos - rot(x sin)`` (the
+    rotation is antisymmetric), as ``fit_tpu``'s ``_qkv_bwd_kernel``.
     """
     qkv = _flat_qkv(qkv)
     b, t, w = qkv.shape
     c = w // 3
     d = c // num_heads
-    q, k, v = qkv.float().reshape(b, t, 3, num_heads, d).unbind(2)  # (B, T, H, d)
+    qr, kr, v = _rotated_heads(qkv, cos, sin, num_heads)
+    gf = g.float().reshape(b, t, num_heads, d)
+    of = out.float().reshape(b, t, num_heads, d)
+    s2 = torch.einsum("bqhd,bkhd->bhqk", qr, kr) * (scale * LOG2_E)
+    p = torch.exp2(s2 - lse.float().transpose(1, 2)[..., None])
+    p = p.masked_fill(~_valid_keys(lengths, t, qkv.device), 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v)
+    delta = (gf * of).sum(-1).transpose(1, 2)[..., None]  # (B, H, T, 1)
+    ds = p * (dp - delta)
+    dqr = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dkr = torch.einsum("bhqk,bqhd->bkhd", ds, qr) * scale
     cos_h, sin_h = cos.float()[:, :, None, :], sin.float()[:, :, None, :]
-    qr = q * cos_h + rotate_pairs(q) * sin_h
-    kr = k * cos_h + rotate_pairs(k) * sin_h
-    scores = torch.einsum("bqhd,bkhd->bhqk", qr, kr) * scale
-    valid = torch.arange(t, device=qkv.device)[None, :] < lengths.to(qkv.device)[:, None]
-    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v)
-    return out.reshape(b, t, c).to(qkv.dtype)
+
+    def rope_vjp(x):
+        return x * cos_h - rotate_pairs(x * sin_h)
+
+    dqkv = torch.stack([rope_vjp(dqr), rope_vjp(dkr), dv], dim=2)  # (B, T, 3, H, d)
+    return dqkv.reshape(b, t, w).to(qkv.dtype)
 
 
 def _check_cuda_args(qkv, cos, sin, lengths, num_heads, check_lengths) -> int:
@@ -103,15 +188,138 @@ def _check_cuda_args(qkv, cos, sin, lengths, num_heads, check_lengths) -> int:
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must be int32 ({b},), got {lengths.dtype} {tuple(lengths.shape)}")
     for name, x in (("qkv", qkv), ("cos", cos), ("sin", sin), ("lengths", lengths)):
-        if x.device != qkv.device:
-            raise ValueError(f"{name} is on {x.device}, qkv on {qkv.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel moves 16-byte vectors)")
+        _check_operand(name, x, qkv.device)
     if check_lengths and bool((lengths < 1).any()):
         raise ValueError("every length must be at least 1")
     return d
+
+
+def _check_operand(name: str, x: torch.Tensor, device: torch.device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, qkv on {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the kernel moves 16-byte vectors)")
+
+
+def _check_bwd_args(qkv, g, out, lse, num_heads) -> None:
+    b, t, w = qkv.shape
+    for name, x, shape, dtype in (
+        ("g", g, (b, t, w // 3), qkv.dtype),
+        ("out", out, (b, t, w // 3), qkv.dtype),
+        ("lse", lse, (b, t, num_heads), torch.float32),
+    ):
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
+        _check_operand(name, x, qkv.device)
+
+
+def rope_attention_fwd(
+    qkv: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float,
+    num_heads: int,
+    *,
+    with_lse: bool = False,
+    check_lengths: bool = True,
+    plain: bool = False,
+):
+    """K1's wrapper: the forward, no autograd. Returns ``out`` (B, T, C), or
+    ``(out, lse2)`` with ``with_lse``. On a CPU tensor, or with ``plain``,
+    the plain version; on a CUDA tensor the kernel."""
+    global launches
+    if plain or qkv.device.type == "cpu":
+        return rope_attention_reference(qkv, cos, sin, lengths, scale, num_heads, with_lse=with_lse)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no rope attention kernel for device {qkv.device}")
+    qkv = _flat_qkv(qkv)
+    d = _check_cuda_args(qkv, cos, sin, lengths, num_heads, check_lengths)
+    b, t, w = qkv.shape
+    out = torch.empty((b, t, w // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, t, num_heads), dtype=torch.float32, device=qkv.device) if with_lse else None
+    lib = _lib("rope_attention")
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.rope_attention_fwd(
+            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            b, t, num_heads, d, scale * LOG2_E, int(qkv.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        msg = lib.rope_attention_error_string(err).decode()
+        raise RuntimeError(f"rope_attention_fwd launch failed: {msg} (cudaError {err})")
+    launches += 1
+    return (out, lse) if with_lse else out
+
+
+def rope_attention_bwd(
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float,
+    num_heads: int,
+    *,
+    plain: bool = False,
+) -> torch.Tensor:
+    """K2's wrapper: dqkv (B, T, 3C) in qkv's dtype. ``g`` is made
+    contiguous and cast to qkv's dtype first. On a CPU tensor, or with
+    ``plain``, the plain version; on a CUDA tensor the kernel (three
+    launches: delta, dk/dv, dq; counted as one call)."""
+    global bwd_launches
+    if plain or qkv.device.type == "cpu":
+        return rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lengths, scale, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no rope attention kernel for device {qkv.device}")
+    qkv = _flat_qkv(qkv)
+    d = _check_cuda_args(qkv, cos, sin, lengths, num_heads, check_lengths=False)
+    g = g.to(qkv.dtype).contiguous()
+    _check_bwd_args(qkv, g, out, lse, num_heads)
+    b, t, w = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((b, t, num_heads), dtype=torch.float32, device=qkv.device)
+    lib = _lib("rope_attention_bwd")
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.rope_attention_bwd(
+            qkv.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(), lengths.data_ptr(), dqkv.data_ptr(),
+            b, t, num_heads, d, scale, int(qkv.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        msg = lib.rope_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"rope_attention_bwd launch failed: {msg} (cudaError {err})")
+    bwd_launches += 1
+    return dqkv
+
+
+class _RopeAttention(torch.autograd.Function):
+    """K1 with lse forward, K2 backward; cos, sin and lengths get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, lengths, scale, num_heads, check_lengths, plain):
+        out, lse = rope_attention_fwd(
+            qkv, cos, sin, lengths, scale, num_heads,
+            with_lse=True, check_lengths=check_lengths, plain=plain,
+        )
+        ctx.save_for_backward(qkv, cos, sin, lengths, out, lse)
+        ctx.scale, ctx.num_heads, ctx.plain = scale, num_heads, plain
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        qkv, cos, sin, lengths, out, lse = ctx.saved_tensors
+        dqkv = rope_attention_bwd(
+            qkv, g, out, lse, cos, sin, lengths, ctx.scale, ctx.num_heads, plain=ctx.plain
+        )
+        return dqkv, None, None, None, None, None, None, None
 
 
 def qkv_rope_attention(
@@ -131,43 +339,39 @@ def qkv_rope_attention(
     ``[h0 | h1 | ...]`` (or the (B, T, 3, C) view of the same memory).
     cos/sin: (B, T, d) fp32 pair-duplicated tables (:func:`split_rope_tables`).
     lengths: (B,) int32 prefix lengths, each at least 1. Returns (B, T, C) in
-    qkv's dtype.
+    qkv's dtype, differentiable in qkv.
 
     ``check_lengths=False`` skips the lengths check, which reads the tensor
     back to the host; a caller that has already checked them passes it.
-    ``plain=True`` runs the plain version on any device.
+    ``plain=True`` runs the plain versions on any device.
     """
-    global launches
-    if plain or qkv.device.type == "cpu":
-        return rope_attention_reference(qkv, cos, sin, lengths, scale, num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no rope attention kernel for device {qkv.device}")
     qkv = _flat_qkv(qkv)
-    d = _check_cuda_args(qkv, cos, sin, lengths, num_heads, check_lengths)
-    b, t, w = qkv.shape
-    out = torch.empty((b, t, w // 3), dtype=qkv.dtype, device=qkv.device)
-    fn = _kernel()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = fn(
-            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, t, num_heads, d, scale * LOG2_E, int(qkv.dtype == torch.bfloat16), stream,
-        )
-    if err != 0:
-        msg = _build.load("rope_attention").rope_attention_error_string(err).decode()
-        raise RuntimeError(f"rope_attention_fwd launch failed: {msg} (cudaError {err})")
-    launches += 1
-    return out
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _RopeAttention.apply(qkv, cos, sin, lengths, scale, num_heads, check_lengths, plain)
+    return rope_attention_fwd(
+        qkv, cos, sin, lengths, scale, num_heads, check_lengths=check_lengths, plain=plain
+    )
 
 
-def _kernel():
-    lib = _build.load("rope_attention")
-    fn = lib.rope_attention_fwd
+# source -> (C entry, its argument kinds: pointer, int, float)
+_ENTRIES = {
+    # qkv, cos, sin, lengths, out, lse, batch, seq, heads, head_dim, q_mul, is_bf16, stream
+    "rope_attention": ("rope_attention_fwd", "pppppp" "iiii" "fip"),
+    # qkv, g, out, lse, delta, cos, sin, lengths, dqkv, batch, seq, heads, head_dim, scale, is_bf16, stream
+    "rope_attention_bwd": ("rope_attention_bwd", "ppppppppp" "iiii" "fip"),
+}
+
+
+def _lib(source: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<source>.cu`` with its C entries typed."""
+    lib = _build.load(source)
+    entry, kinds = _ENTRIES[source]
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
-        fn.restype = i32
-        lib.rope_attention_error_string.argtypes = [i32]
-        lib.rope_attention_error_string.restype = ctypes.c_char_p
-    return fn
-
+        ctype = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        fn.argtypes = [ctype[k] for k in kinds]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{source}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib

@@ -22,6 +22,7 @@ from fit_tpu_torch.core.pos_embed import rope_freqs_2d
 from fit_tpu_torch.diffusion.gaussian import create_diffusion
 from fit_tpu_torch.diffusion.samplers import ddim_sample_loop, p_sample_loop
 from fit_tpu_torch.models.fit import FiT
+from fit_tpu_torch.utils.device import resolve_device
 
 __all__ = ["create_pos_embed", "create_mask", "mask_lengths", "cast_for_sampling", "FiTSampler"]
 
@@ -86,7 +87,8 @@ class FiTSampler:
     The model's floating parameters are cast in place to its compute dtype
     (``model.dtype``, except int8 scales: :func:`cast_for_sampling`) and
     moved to ``device`` once, here; LayerNorm statistics stay fp32 inside
-    the blocks. ``sampler`` is "ddim" or "ddpm".
+    the blocks. ``device`` is the card unless the caller names another
+    (``"cpu"``); without a card that raises. ``sampler`` is "ddim" or "ddpm".
     Sizes are in pixels; latents are ``vae_scale`` times smaller.
     """
 
@@ -100,11 +102,11 @@ class FiTSampler:
         max_size: int = 32,
         max_length: int = 256,
         num_classes: int = 1000,
-        device=None,
+        device="cuda",
     ):
         if sampler not in ("ddim", "ddpm"):
             raise ValueError(f"unknown sampler {sampler!r}: use 'ddim' or 'ddpm'")
-        self.device = torch.device(device) if device is not None else next(model.parameters()).device
+        self.device = resolve_device(device)
         self.model = cast_for_sampling(model, self.device)
         self.num_sampling_steps = num_sampling_steps
         self.cfg_scale = cfg_scale

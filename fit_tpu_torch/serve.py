@@ -80,7 +80,8 @@ class SamplingServer:
 
     ``submit`` returns a ``concurrent.futures.Future`` that resolves to the
     (C, h, w) float32 latent of one request, as a numpy array. The model is
-    moved to ``device`` and cast once by the sampler.
+    moved to ``device`` (the card unless the caller names another) and cast
+    once by the sampler.
     """
 
     def __init__(
@@ -96,7 +97,7 @@ class SamplingServer:
         max_size: int = 32,
         max_length: int = 256,
         max_queue: Optional[int] = None,
-        device=None,
+        device="cuda",
     ):
         self.sampler = FiTSampler(
             model,

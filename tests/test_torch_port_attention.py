@@ -6,10 +6,16 @@ them) and their XLA oracle. All fp32, valid query rows only (padded query
 rows are discarded downstream). Tolerance 3e-5: fp32 with another summation
 order than XLA's, the bar of tests/test_torch_parity.py.
 
-The kernel itself runs only on a CUDA card: tests/test_torch_port_cuda.py
-holds it against the plain version there.
+The backward is held against jax.grad through the same Pallas kernels'
+custom VJP in each of fit_tpu's backward regimes, at the bar of
+tests/test_fused_attention.py's gradient tests (5e-5), with an upstream
+gradient on every query row.
+
+The kernels themselves run only on a CUDA card: tests/test_torch_port_cuda.py
+holds them against the plain versions there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,3 +157,123 @@ def test_kernel_argument_checks(bad, heads, error, match):
     assert ra._check_cuda_args(*args, num_heads=2, check_lengths=True) == 16
     with pytest.raises(error, match=match):
         ra._check_cuda_args(*bad(args), num_heads=heads, check_lengths=True)
+
+
+# --- K1's lse and the backward K2 (plain versions here; the kernels run on
+# the card in tests/test_torch_port_cuda.py) --------------------------------
+
+GRAD_ATOL = 5e-5  # the bar of tests/test_fused_attention.py's gradient tests
+H6, D16 = 6, 16  # hidden 96 over 6 heads
+
+
+def _port_inputs(seed, t, lengths):
+    qkv, fc, lens = make_inputs(seed, len(lengths), t, H6, D16, lengths)
+    cos, sin = ra.split_rope_tables(torch.from_numpy(fc))
+    g = np.random.default_rng(seed + 100).normal(size=(len(lengths), t, H6 * D16)).astype(np.float32)
+    return qkv, fc, lens, cos, sin, g  # g is random on every row, padded rows too
+
+
+def test_lse_matches_chunked_pallas_forward(monkeypatch):
+    """lse2 of the plain forward == _qkv_forward_chunked(with_lse=True), the
+    chunked Pallas kernel forced at T=256 by a 64-row chunk threshold."""
+    monkeypatch.setenv("FIT_TPU_CHUNK_T", "64")
+    lengths = (256, 200)
+    qkv, fc, lens, cos, sin, _ = _port_inputs(7, 256, lengths)
+    out, lse = ra.rope_attention_fwd(torch.from_numpy(qkv), cos, sin, torch.from_numpy(lens), D16**-0.5, H6, with_lse=True)
+    assert lse.shape == (2, 256, H6) and lse.dtype == torch.float32
+    jcos, jsin = jfa.split_rope_tables(jnp.asarray(fc))
+    jout, jlse = jfa._qkv_forward_chunked(
+        jnp.asarray(qkv).reshape(2, 256, 3, H6 * D16), jcos, jsin, jnp.asarray(lens), D16**-0.5, D16, True
+    )
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=ATOL, rtol=0)  # padded rows too
+    valid_rows_close(out.numpy(), np.asarray(jout), lens)
+
+
+# (JAX regime, env, T, lengths): Pallas interpret at T=64; the single-pass
+# chunked backward at T=256; the two-pass chunked backward at T=256.
+GRAD_CASES = [
+    ("pallas", {}, 64, (64, 50)),
+    ("pallas", {}, 64, (33, 1)),
+    ("single-pass", {"FIT_TPU_CHUNK_T": "64"}, 256, (256, 200)),
+    ("single-pass", {"FIT_TPU_CHUNK_T": "64"}, 256, (128, 65)),
+    ("two-pass", {"FIT_TPU_CHUNK_T": "64", "FIT_TPU_QCHUNK_T": "128", "FIT_TPU_SINGLE_BWD_T": "64"}, 256, (256, 200)),
+    ("two-pass", {"FIT_TPU_CHUNK_T": "64", "FIT_TPU_QCHUNK_T": "128", "FIT_TPU_SINGLE_BWD_T": "64"}, 256, (128, 65)),
+]
+
+
+@pytest.mark.parametrize("regime,env,t,lengths", GRAD_CASES, ids=[f"{c[0]}-{c[3]}" for c in GRAD_CASES])
+def test_backward_matches_jax_grad(monkeypatch, regime, env, t, lengths):
+    """The autograd Function (K1 with lse forward, K2 backward; plain on the
+    CPU) and the plain backward called directly, against jax.grad through
+    qkv_rope_flash_attention in each of fit_tpu's backward regimes. Every
+    query row carries gradient, padded rows included."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    qkv, fc, lens, cos, sin, g = _port_inputs(len(lengths) + t, t, lengths)
+    jcos, jsin = jfa.split_rope_tables(jnp.asarray(fc))
+    want = np.asarray(jax.grad(
+        lambda x: jnp.sum(jfa.qkv_rope_flash_attention(x, jcos, jsin, jnp.asarray(lens), D16**-0.5, H6) * g)
+    )(jnp.asarray(qkv)))
+
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    ra.reset_launches()
+    out = ra.qkv_rope_attention(x, cos, sin, torch.from_numpy(lens), D16**-0.5, H6)
+    (got,) = torch.autograd.grad(out, x, torch.from_numpy(g))
+    assert (ra.launches, ra.bwd_launches) == (0, 0)  # CPU tensors: the plain versions
+    np.testing.assert_allclose(got.numpy(), want, atol=GRAD_ATOL, rtol=0)
+
+    o, lse = ra.rope_attention_fwd(torch.from_numpy(qkv), cos, sin, torch.from_numpy(lens), D16**-0.5, H6, with_lse=True)
+    direct = ra.rope_attention_bwd(torch.from_numpy(qkv), torch.from_numpy(g), o, lse, cos, sin, torch.from_numpy(lens), D16**-0.5, H6)
+    np.testing.assert_allclose(direct.numpy(), want, atol=GRAD_ATOL, rtol=0)
+    # keys at or past a row's length get no gradient
+    c = H6 * D16
+    for i, n in enumerate(lens):
+        assert not direct[i, n:, c:].any()
+
+
+def test_backward_matches_autograd_of_plain_forward():
+    """The plain backward is the VJP of the plain forward (fp32, another
+    order of the same sums), and padded query rows do reach the keys: with
+    their upstream gradient zeroed, dk and dv change."""
+    lengths = (40, 9)
+    qkv, _, lens, cos, sin, g = _port_inputs(3, 40, lengths)
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = ra.rope_attention_reference(x, cos, sin, torch.from_numpy(lens), D16**-0.5, H6)
+    (want,) = torch.autograd.grad(out, x, torch.from_numpy(g))
+    o, lse = ra.rope_attention_reference(x.detach(), cos, sin, torch.from_numpy(lens), D16**-0.5, H6, with_lse=True)
+    got = ra.rope_attention_backward_reference(x.detach(), torch.from_numpy(g), o, lse, cos, sin, torch.from_numpy(lens), D16**-0.5, H6)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    g_valid = g.copy()
+    g_valid[1, 9:] = 0
+    masked = ra.rope_attention_backward_reference(x.detach(), torch.from_numpy(g_valid), o, lse, cos, sin, torch.from_numpy(lens), D16**-0.5, H6)
+    assert (masked[1, :9, H6 * D16 :] - got[1, :9, H6 * D16 :]).abs().max() > 1e-3
+
+
+def test_inference_takes_the_forward_without_lse(monkeypatch):
+    """No gradient wanted: one plain forward, no autograd Function."""
+    qkv, _, lens, cos, sin, _ = _port_inputs(4, 32, (32, 20))
+    calls = []
+    real = ra.rope_attention_reference
+    monkeypatch.setattr(ra, "rope_attention_reference", lambda *a, **k: calls.append(k) or real(*a, **k))
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    with torch.inference_mode():
+        ra.qkv_rope_attention(x, cos, sin, torch.from_numpy(lens), 0.25, H6)
+    with torch.no_grad():
+        ra.qkv_rope_attention(x, cos, sin, torch.from_numpy(lens), 0.25, H6)
+    out = ra.qkv_rope_attention(x, cos, sin, torch.from_numpy(lens), 0.25, H6)
+    assert [k.get("with_lse", False) for k in calls] == [False, False, True]
+    assert out.grad_fn is not None
+
+
+def test_backward_argument_checks():
+    """K2's checks on g, out and lse, device-agnostic (CPU tensors here)."""
+    qkv, _, lens, cos, sin, g = _port_inputs(5, 16, (16, 16))
+    q, gt = torch.from_numpy(qkv), torch.from_numpy(g)
+    out, lse = ra.rope_attention_reference(q, cos, sin, torch.from_numpy(lens), 0.25, H6, with_lse=True)
+    ra._check_bwd_args(q, gt, out, lse, H6)
+    with pytest.raises(ValueError, match="lse must be"):
+        ra._check_bwd_args(q, gt, out, lse[..., :-1], H6)
+    with pytest.raises(ValueError, match="out must be"):
+        ra._check_bwd_args(q, gt, out.bfloat16(), lse, H6)
+    with pytest.raises(ValueError, match="contiguous"):
+        ra._check_bwd_args(q, gt.transpose(0, 1).contiguous().transpose(0, 1), out, lse, H6)

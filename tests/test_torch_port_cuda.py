@@ -9,6 +9,10 @@ Tolerances, against the plain versions on the same inputs:
   version): 1e-4 for fp32 (fp32 FMA dots, another summation order), 3e-2
   for bf16 (bf16 rounding of the rotated q/k, of p and of the output, the
   bound fit_tpu uses for its bf16 dot kernels);
+- K1's lse and the backward K2 (dq, dk, dv each, every row): max abs
+  error over max(1, max |plain|) within 1e-4 in fp32, over max |plain|
+  within 3e-2 in bf16 (bf16 rounding of the rotated q/k, of p, of ds and of
+  the stored gradient); keys at or past a row's length get exactly 0;
 - the row kernels with int8 epilogue: codes within one step, on at most
   1e-3 of them plus one (a LayerNorm sum taken in another order can move a
   value across a rounding boundary), row scales within 1e-6 relative;
@@ -88,6 +92,67 @@ def test_kernel_rejects_bad_arguments(cuda_device):
         ra.qkv_rope_attention(qkv, cos.transpose(1, 2).contiguous().transpose(1, 2), sin, ones, 0.25, 2)
     with pytest.raises(ValueError, match="int32"):
         ra.qkv_rope_attention(qkv, cos, sin, ones.long(), 0.25, 2)
+
+
+GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "h,d,t,lengths",
+    [
+        (12, 64, 256, (256, 200, 1, 129)),  # FiT-B/2 training, a one-key row
+        (12, 64, 96, (96, 50, 1)),  # a token bucket: T not a multiple of 64
+        (12, 64, 32, (32, 17)),
+        (16, 72, 256, (256, 130, 1)),  # XL's d = 72, padded to 80
+        (16, 72, 1024, (1024, 700)),
+        (2, 16, 40, (40, 1)),  # the other compiled paddings
+        (2, 128, 128, (128, 70)),
+    ],
+)
+def test_lse_and_backward_match_plain_versions(cuda_device, dtype, h, d, t, lengths):
+    qkv, cos, sin, lens = make_inputs(2, h, d, t, lengths, cuda_device, dtype)
+    g = torch.randn((len(lengths), t, h * d), generator=torch.Generator(cuda_device).manual_seed(1), device=cuda_device).to(dtype)
+    ra.reset_launches()
+    out, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
+    dqkv = ra.rope_attention_bwd(qkv, g, out, lse, cos, sin, lens, d**-0.5, h)
+    torch.cuda.synchronize()
+    assert (ra.launches, ra.bwd_launches) == (1, 1)
+    assert torch.equal(out, ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h))  # lse changes nothing else
+    _, lse_want = ra.rope_attention_reference(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
+    tol = GRAD_REL[dtype]
+    assert (lse - lse_want).abs().max().item() <= tol * max(1.0, lse_want.abs().max().item())
+    want = ra.rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lens, d**-0.5, h).float()
+    got = dqkv.float()
+    assert dqkv.dtype == dtype and torch.isfinite(got).all()
+    c = h * d
+    for i in range(3):
+        part, ref = got[..., i * c : (i + 1) * c], want[..., i * c : (i + 1) * c]
+        denom = ref.abs().max().item() if dtype == torch.bfloat16 else max(1.0, ref.abs().max().item())
+        assert (part - ref).abs().max().item() <= tol * denom, f"d{'qkv'[i]}"
+    for i, n in enumerate(lengths):  # dk = dv = 0 past the length, written into torch.empty
+        assert not got[i, n:, c:].any()
+
+
+@pytest.mark.cuda
+def test_autograd_function_launches_k1_with_lse_and_k2(cuda_device):
+    """Grad wanted: K1 with lse, then K2 on backward (a non-contiguous
+    upstream gradient is made contiguous); inference: K1 alone, once."""
+    qkv, cos, sin, lens = make_inputs(3, 12, 64, 96, (96, 40), cuda_device, torch.bfloat16)
+    x = qkv.clone().requires_grad_(True)
+    ra.reset_launches()
+    out = ra.qkv_rope_attention(x, cos, sin, lens, 0.125, 12)
+    g = torch.randn(out.shape[::-1], device=cuda_device).to(out.dtype).permute(2, 1, 0)
+    (dx,) = torch.autograd.grad(out, x, g)
+    torch.cuda.synchronize()
+    assert (ra.launches, ra.bwd_launches) == (1, 1)
+    o, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, 0.125, 12, with_lse=True)
+    assert torch.equal(dx, ra.rope_attention_bwd(qkv, g.contiguous(), o, lse, cos, sin, lens, 0.125, 12))
+    ra.reset_launches()
+    with torch.inference_mode():
+        ra.qkv_rope_attention(x, cos, sin, lens, 0.125, 12)
+    assert (ra.launches, ra.bwd_launches) == (1, 0)
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:

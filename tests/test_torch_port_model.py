@@ -142,7 +142,7 @@ def test_converter_layout():
 
 def test_reference_init_and_registry():
     assert len(FiT_models) == 12
-    m = FiT_models["FiT-S/4"](num_classes=NUM_CLASSES)
+    m = FiT_models["FiT-S/4"](num_classes=NUM_CLASSES, device="cpu")
     assert (m.depth, m.hidden_size, m.num_heads, m.patch_size) == (12, 384, 6, 4)
     assert m.blocks[0].ffn.fc1_g.out_features == int(384 * 4 * 2 / 3)
     assert m.y_embedder.table.num_embeddings == NUM_CLASSES + 1
@@ -150,12 +150,14 @@ def test_reference_init_and_registry():
     tokens, t, y, pos, mask = inputs((64, 40))
     small = torch_model(dropout=0.1)
     with torch.no_grad():
-        out = small(*(torch.from_numpy(a) for a in (tokens, t, y, pos, mask)), train=True)
+        out = small(
+            *(torch.from_numpy(a) for a in (tokens, t, y, pos, mask)), train=True,
+            generator=torch.Generator().manual_seed(0),
+        )
     assert out.abs().max() == 0
     # xavier-uniform with the flat (D, 3D) fans: std sqrt(2 / (D + 3D))
     assert abs(small.blocks[0].attn.qkv.weight.std().item() - (2 / (4 * HID)) ** 0.5) < 0.01
-    with torch.device("meta"):
-        xl = create_fit("FiT-XL/2")
+    xl = create_fit("FiT-XL/2", device="meta")
     assert (xl.depth, xl.head_dim, len(xl.blocks)) == (28, 72, 28)
 
 
@@ -167,5 +169,8 @@ def test_label_dropout_and_bf16_compute():
     torch.testing.assert_close(emb[0], m.y_embedder.table.weight[NUM_CLASSES])
     m.dtype = torch.bfloat16
     with torch.no_grad():
-        out = m(*(torch.from_numpy(a) for a in (tokens, t, y, pos, mask)), train=True)
+        out = m(
+            *(torch.from_numpy(a) for a in (tokens, t, y, pos, mask)), train=True,
+            generator=torch.Generator().manual_seed(0),
+        )
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()

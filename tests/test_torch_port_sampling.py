@@ -117,6 +117,7 @@ def assert_latents_close(got, want):
 
 
 SAMPLER_KW = dict(num_sampling_steps=4, cfg_scale=1.5, max_size=16, max_length=64, num_classes=10)
+TORCH_KW = dict(SAMPLER_KW, device="cpu")  # the port runs on the card unless asked
 
 
 def test_fit_sampler_sample_matches_jax(tiny_models):
@@ -125,7 +126,7 @@ def test_fit_sampler_sample_matches_jax(tiny_models):
     want = JaxSampler(jm, sampler="ddim", **SAMPLER_KW).sample(
         params, [1, 2], jax.random.PRNGKey(0), 96, 160, z=jnp.asarray(z)
     )
-    got = FiTSampler(tm, sampler="ddim", **SAMPLER_KW).sample([1, 2], 96, 160, z=torch.from_numpy(z))
+    got = FiTSampler(tm, sampler="ddim", **TORCH_KW).sample([1, 2], 96, 160, z=torch.from_numpy(z))
     assert got.shape == (2, 4, 12, 20)
     assert_latents_close(got.numpy(), want)
 
@@ -137,7 +138,7 @@ def test_fit_sampler_sample_mixed_matches_jax(tiny_models):
     want = JaxSampler(jm, sampler="ddim", **SAMPLER_KW).sample_mixed(
         params, [3, 4, 5], sizes, jax.random.PRNGKey(0), z=jnp.asarray(z)
     )
-    got = FiTSampler(tm, sampler="ddim", **SAMPLER_KW).sample_mixed(
+    got = FiTSampler(tm, sampler="ddim", **TORCH_KW).sample_mixed(
         [3, 4, 5], sizes, z=torch.from_numpy(z)
     )
     assert [tuple(g.shape) for g in got] == [(4, 16, 16), (4, 12, 20), (4, 8, 12)]
@@ -150,7 +151,7 @@ def test_fit_sampler_ddpm_and_bf16_run(tiny_models):
     model = FiT(patch_size=2, in_channels=4, hidden_size=96, depth=2, num_heads=6,
                 num_classes=10, dtype=torch.bfloat16)
     model.load_state_dict(tm.state_dict())
-    s = FiTSampler(model, sampler="ddpm", **SAMPLER_KW)
+    s = FiTSampler(model, sampler="ddpm", **TORCH_KW)
     assert next(model.parameters()).dtype == torch.bfloat16  # cast once, in place
     out = s.sample([0, 9], 128, 128, generator=torch.Generator().manual_seed(0))
     assert out.shape == (2, 4, 16, 16) and out.dtype == torch.float32
@@ -164,7 +165,7 @@ def test_zero_length_row_raises_from_the_sampler(tiny_models):
     denoise loop); a size with no token still fails before any forward, and
     a device mask handed to the model is still checked there."""
     _, _, tm = tiny_models
-    s = FiTSampler(tm, sampler="ddim", **SAMPLER_KW)
+    s = FiTSampler(tm, sampler="ddim", **TORCH_KW)
     with pytest.raises(ValueError, match="at least one valid token"):
         s.sample_mixed([1, 2], [(128, 128), (0, 128)])
     with pytest.raises(ValueError, match="at least one valid token"):

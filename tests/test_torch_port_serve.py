@@ -133,11 +133,12 @@ def jax_canvas_noise(seed, max_size):
 
 
 SERVER_KW = dict(num_sampling_steps=4, cfg_scale=1.5, num_classes=NUM_CLASSES, max_size=16, max_length=64)
+TORCH_KW = dict(SERVER_KW, device="cpu")  # the port runs on the card unless asked
 
 
 def test_served_request_matches_jax_sampler(int8_models):
     qjm, qparams, tm = int8_models
-    with SamplingServer(tm, batch_size=4, max_batch_wait_s=0.05, sampler="ddim", **SERVER_KW) as srv:
+    with SamplingServer(tm, batch_size=4, max_batch_wait_s=0.05, sampler="ddim", **TORCH_KW) as srv:
         a = srv.submit(3, 96, 160, seed=42).result(timeout=WAIT)
         np.testing.assert_array_equal(srv._canvas_noise(SimpleNamespace(seed=42)), jax_canvas_noise(42, 16))
     z = jax_canvas_noise(42, 16)[None]
@@ -155,7 +156,7 @@ def test_sampler_keeps_int8_weights_and_fp32_scales(int8_models):
     model = port_model("int8")
     model.load_state_dict(tm.state_dict())
     model.dtype = torch.bfloat16
-    srv = SamplingServer(model, batch_size=2, **SERVER_KW)
+    srv = SamplingServer(model, batch_size=2, **TORCH_KW)
     try:
         qkv = model.blocks[0].attn.qkv
         assert qkv.weight.dtype == torch.int8
@@ -175,7 +176,7 @@ def make_server(model, **kw):
     kw.setdefault("batch_size", 4)
     kw.setdefault("max_batch_wait_s", 0.2)
     kw.setdefault("sampler", "ddim")
-    for k, v in SERVER_KW.items():
+    for k, v in TORCH_KW.items():
         kw.setdefault(k, v)
     kw["num_sampling_steps"] = 2
     return SamplingServer(model, **kw)
