@@ -32,9 +32,21 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      kernels against the same step through their plain versions; then the
      Trainer on synthetic latents: a 6-step pad-packed run, the same run
      stopped at step 4 and resumed by a fresh Trainer (the loss stream must
-     repeat), and 3 steps of bucket packing, each run's launches asserted.
+     repeat), and 3 steps of bucket packing, each run's launches asserted;
+  7. DiT: K1's two new modes against their plain versions, with the
+     kernel, plain and SDPA times and the bound: RoPE off through
+     ``masked_attention`` on (B, H, T, d) views of a packed projection (the
+     DiT-XL/2 512^2 shape, B 16 T 1024, full and padded lengths, and d 64
+     T 256), and RoPE on through ``rope_flash_attention`` on (B, T, H, d)
+     tensors and views (XL B16 T256); then DiT-XL/2 with seeded random
+     weights samples 512x512 (DDPM, LEARNED_RANGE, 10 steps, CFG 4.0,
+     batch 8), checking the output, every launch count and one guided
+     forward against the plain kernels, with one step's host and device
+     time by group; then one guided FiT-XL/2 forward with
+     ``pos_kind="absolute"`` and ``ffn="mlp"`` over mixed sizes (prefix
+     masks), kernels vs plain.
 The line before the last is a JSON object with each kernel's numbers
-(launches by path: sample, serve, train); the last line is
+(launches by path: sample, serve, train, dit); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -325,9 +337,10 @@ def train_step_check(ra, rope_freqs_2d) -> None:
         raise AssertionError("the training step through the kernels disagrees with the plain one")
 
 
-def kernel_launches(ra, quant, fused_adaln) -> dict:
+def kernel_launches(ra, quant, fused_adaln, attn) -> dict:
     """Every kernel's launch count since its module's last reset."""
-    return {"rope_attention_fwd": ra.launches, "rope_attention_bwd": ra.bwd_launches, **quant.launches,
+    return {"rope_attention_fwd": ra.launches, "rope_attention_bwd": ra.bwd_launches,
+            "rope_flash_attention": ra.flash_launches, "masked_attention": attn.launches, **quant.launches,
             **fused_adaln.launches}
 
 
@@ -418,13 +431,15 @@ def trainer_phase(kernel_modules):
     return totals
 
 
-def guided_inputs(sampler_mod, head_dim, sizes, gen):
-    """Inputs of one guided forward at the given image sizes."""
+def guided_inputs(sampler_mod, embed_dim, sizes, gen, method="rotate"):
+    """Inputs of one guided forward at the given image sizes: RoPE tables
+    (``embed_dim`` the head dim) or sincos tables (``method="absolute"``,
+    ``embed_dim`` the hidden size)."""
     n = len(sizes)
-    pos = torch.zeros((n, 256, head_dim))
+    pos = torch.zeros((n, 256, embed_dim))
     mask = torch.zeros((n, 256), dtype=torch.bool)
     for i, (ih, iw) in enumerate(sizes):
-        tab, valid_t = sampler_mod.create_pos_embed(ih // 8, iw // 8, 2, 256, head_dim)
+        tab, valid_t = sampler_mod.create_pos_embed(ih // 8, iw // 8, 2, 256, embed_dim, method)
         pos[i] = torch.from_numpy(tab[0])
         mask[i, :valid_t] = True
     pos2, mask2 = torch.cat([pos, pos]).cuda(), torch.cat([mask, mask]).cuda()
@@ -434,12 +449,12 @@ def guided_inputs(sampler_mod, head_dim, sizes, gen):
     return x, t, y, pos2, mask2
 
 
-def guided_forward(model, inputs, plain=False):
+def guided_forward(model, inputs, plain=False, cfg_scale=CFG_SCALE):
     """One guided forward, through the kernels or (plain) their plain versions."""
     model.plain_kernels = plain
     try:
         with torch.inference_mode():
-            out = model.forward_with_cfg(*inputs, CFG_SCALE)
+            out = model.forward_with_cfg(*inputs, cfg_scale)
     finally:
         model.plain_kernels = False
     if not torch.isfinite(out).all():
@@ -605,7 +620,6 @@ def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
     """Phase 5, serving: SamplingServer + the HTTP handler on a free local
     port; 12 seeded requests of mixed sizes, one seed twice in two batch
     compositions. Returns the launch counts of this path and its numbers."""
-    ra, quant, fused_adaln = kernel_modules
     server = serve_mod.SamplingServer(
         qmodel, batch_size=SERVE_BATCH, max_batch_wait_s=0.1, num_sampling_steps=SERVE_STEPS,
         cfg_scale=CFG_SCALE, sampler="ddim", device="cuda",
@@ -616,7 +630,7 @@ def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
     http_thread.start()
     try:
         warm_s = server.warmup(timeout=600)
-        for mod in (ra, quant, fused_adaln):
+        for mod in kernel_modules:
             mod.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -631,7 +645,7 @@ def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
         with ThreadPoolExecutor(len(burst)) as pool:
             responses += list(zip(burst, pool.map(lambda b: post_sample(base, b), burst)))
         wall = time.perf_counter() - t0
-        launches = kernel_launches(ra, quant, fused_adaln)
+        launches = kernel_launches(*kernel_modules)
         with urllib.request.urlopen(f"{base}/stats", timeout=60) as resp:
             stats = json.loads(resp.read())
         with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
@@ -654,8 +668,8 @@ def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
     if health != {"status": "ok"} or stats["served"] != len(responses):
         raise AssertionError(f"/stats served {stats['served']} of {len(responses)}; /healthz {health}")
     batches = stats["batches"]
-    per_step = {"rope_attention_fwd": DEPTH, "rope_attention_bwd": 0, "adaln_quant": 2 * DEPTH,
-                "silu_mul_quant": DEPTH, "adaln_modulate": 0, "swiglu_glue": 0}
+    per_step = {k: 0 for k in launches}
+    per_step.update(rope_attention_fwd=DEPTH, adaln_quant=2 * DEPTH, silu_mul_quant=DEPTH)
     expected = {k: v * SERVE_STEPS * batches for k, v in per_step.items()}
     if launches != expected:
         raise AssertionError(f"serving launches {launches}, expected {expected} for {batches} batches")
@@ -673,6 +687,229 @@ def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
         raise AssertionError(f"a repeated seed drifted by {seed_diff} across batch compositions")
     return launches
 
+# 7. DiT-XL/2 at 512^2 (Peebles & Xie 2023, Table 4): 64 x 64 latents, patch
+# 2, T = 1024, batch 8 with CFG = 16 rows, every block through K1 with RoPE
+# off; and K1's strided (B, T, H, d) entry with RoPE on
+DIT_STEPS = 10
+DIT_CFG = 4.0
+DIT_DEPTH = 28
+DIT_SIDE = 64  # latent side at 512^2
+PADDED_1024 = [1024, 700, 513, 1] * 4
+PADDED16 = [256, 256, 200, 130, 64, 1, 255, 129, 256, 256, 224, 180, 256, 33, 2, 256]
+# (name, H, d, T, lengths): RoPE off through masked_attention on (B, H, T, d)
+# views of a packed projection; RoPE on through rope_flash_attention on
+# contiguous (B, T, H, d) tensors and on views of a (B, T, 3, H, d) projection
+STRIDED_CASES = [
+    ("masked_attention", "views", 16, 72, 1024, [1024] * 16),  # the DiT-XL/2 512^2 call
+    ("masked_attention", "views", 16, 72, 1024, PADDED_1024),
+    ("masked_attention", "views", 16, 64, 256, PADDED16),
+    ("rope_flash_attention", "contiguous", 16, 72, 256, [256] * 16),  # row 2's shape
+    ("rope_flash_attention", "views", 16, 72, 256, [256] * 16),
+    ("rope_flash_attention", "contiguous", 16, 72, 256, PADDED16),
+    ("rope_flash_attention", "views", 16, 72, 256, PADDED16),
+]
+
+
+def strided_case(ra, attn, rope_freqs_2d, name, layout, h, d, t, lengths, dtype, seed):
+    """Phase 7a on one case: the entry through K1 against its plain version
+    on the same inputs (max abs error over valid query rows), with the
+    device times of the kernel, the plain version and SDPA (on the same
+    views with the boolean key mask; on pre-rotated q, k for the RoPE entry,
+    so it excludes RoPE), and the bound: each operand read once, the output
+    written once, 2 products of 2 * T * len * d per (row, head) over the
+    valid keys. Returns a dict of these."""
+    b = len(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    scale = d**-0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    es = torch.finfo(dtype).bits // 8
+    nbytes = 4 * b * t * h * d * es + 4 * b
+    if name == "masked_attention":
+        q, k, v = qkv.view(b, t, 3, h, d).transpose(1, 3).unbind(2)  # (B, H, T, d) views
+
+        def kernel():
+            return attn.masked_attention(q, k, v, lengths=lens)
+
+        def plain(cast=False):
+            xs = (q.float(), k.float(), v.float()) if cast else (q, k, v)
+            return attn.masked_attention_reference(*xs, lens, scale)
+
+        def library():
+            return sdpa(q, k, v, attn_mask=mask, scale=scale)
+
+        rows = 2  # (B, H, T, d): query rows on dim 2
+    else:
+        side = int(t**0.5)
+        fc = torch.from_numpy(rope_freqs_2d(d, side, side)).float().cuda()
+        cos, sin = (x.expand(b, t, d).contiguous() for x in ra.split_rope_tables(fc))
+        q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+        if layout == "contiguous":
+            q, k, v = (x.contiguous() for x in (q, k, v))
+        qr, kr = (ra._rope_heads(x, cos, sin).to(dtype).transpose(1, 2).contiguous() for x in (q, k))
+        vh = v.transpose(1, 2).contiguous()
+        nbytes += 2 * b * t * d * 4
+
+        def kernel():
+            return ra.rope_flash_attention(q, k, v, cos, sin, lens, scale)
+
+        def plain(cast=False):
+            xs = (q.float(), k.float(), v.float()) if cast else (q, k, v)
+            return ra.rope_flash_reference(*xs, cos, sin, lens, scale)
+
+        def library():
+            return sdpa(qr, kr, vh, attn_mask=mask, scale=scale)
+
+        rows = 1  # (B, T, H, d): query rows on dim 1
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain(cast=True)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"non-finite {name} output at {(b, t, h, d, dtype)}")
+    err = max(
+        (got[i].narrow(rows - 1, 0, n).float() - want[i].narrow(rows - 1, 0, n)).abs().max().item()
+        for i, n in enumerate(lengths)
+    )
+    tol = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
+    res = {
+        "max_abs_err": err,
+        "ms": device_ms(kernel),
+        "plain_ms": device_ms(plain, iters=5),
+        "library_ms": device_ms(library),
+    }
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2 * sum(2 * t * n * d * h for n in lengths), dtype)
+    print(
+        f"K1 {name} ({layout}, RoPE {'off' if name == 'masked_attention' else 'on'}) vs plain: B={b} T={t} H={h} "
+        f"d={d} {str(dtype).removeprefix('torch.')} lengths min {min(lengths)} max_abs_err={err:.3e} (tol {tol:g}); "
+        f"device us: kernel {res['ms'] * 1e3:.1f} plain {res['plain_ms'] * 1e3:.1f} SDPA {res['library_ms'] * 1e3:.1f}"
+        f"{' (excludes RoPE)' if name != 'masked_attention' else ''} bound {res['bound_ms'] * 1e3:.1f} "
+        f"by {res['bound_by']}",
+        flush=True,
+    )
+    if not err <= tol:
+        raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
+    return res
+
+
+def dit_phase(kernel_modules):
+    """Phase 7b: DiT-XL/2 bf16 with seeded random weights samples 512x512
+    (64 x 64 latents) with DDPM, LEARNED_RANGE and CFG at batch 8. Checks
+    one guided forward through the kernels against the plain kernels, the
+    output and every launch count; profiles one denoise step. Returns this
+    path's launch counts."""
+    from fit_tpu_torch.cli.profile_train import group_of
+    from fit_tpu_torch.diffusion.gaussian import create_diffusion
+    from fit_tpu_torch.diffusion.samplers import p_sample_loop
+    from fit_tpu_torch.models.dit import create_dit
+    from fit_tpu_torch.sampling import cast_for_sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model = create_dit("DiT-XL/2", dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():  # the reference init zeroes adaLN and the final layer
+            p.normal_(0.0, 0.02, generator=gen)
+    cast_for_sampling(model, torch.device("cuda"))
+    diffusion = create_diffusion(str(DIT_STEPS), learn_sigma=True)
+    labels = torch.arange(0, 1000, 1000 // BATCH, device="cuda")[:BATCH]
+    y = torch.cat([labels, torch.full_like(labels, model.num_classes)])
+
+    def model_fn(x, t):
+        return model.forward_with_cfg(x, t, y, DIT_CFG)
+
+    x = torch.randn((2 * BATCH, 4, DIT_SIDE, DIT_SIDE), generator=gen, device="cuda")
+    t = torch.full((2 * BATCH,), 500, device="cuda")
+    inputs = (torch.cat([x[:BATCH], x[:BATCH]]), t, y)
+    rel = rel_rms(guided_forward(model, inputs, cfg_scale=DIT_CFG), guided_forward(model, inputs, plain=True, cfg_scale=DIT_CFG))
+    print(f"DiT-XL/2 512^2 guided forward, kernels vs plain kernels: rel_rms {rel:.3e} (tol {FORWARD_REL_RMS:g})", flush=True)
+    if not rel <= FORWARD_REL_RMS:
+        raise AssertionError("the guided DiT forward through the kernel disagrees with the plain one")
+
+    z = torch.randn((BATCH, 4, DIT_SIDE, DIT_SIDE), generator=gen, device="cuda")
+    for mod in kernel_modules:
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        latents = p_sample_loop(diffusion, model_fn, torch.cat([z, z]), gen, clip_denoised=False)[:BATCH]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernel_launches(*kernel_modules)
+    want = {k: 0 for k in launches}
+    want["masked_attention"] = DIT_DEPTH * DIT_STEPS
+    if launches != want:
+        raise AssertionError(f"DiT sampling launches {launches}, expected {want}")
+    if tuple(latents.shape) != (BATCH, 4, DIT_SIDE, DIT_SIDE) or not torch.isfinite(latents).all():
+        raise AssertionError(f"bad DiT sample output: {tuple(latents.shape)}")
+
+    # one denoise step (guided forward + DDPM update): host enqueue against
+    # the device time by group, then under torch.profiler
+    wrapped = diffusion.wrap_model(model_fn)
+    xt = torch.cat([z, z])
+    ts = torch.full((2 * BATCH,), DIT_STEPS - 1, dtype=torch.long, device="cuda")
+    noise = torch.randn(xt.shape, generator=gen, device="cuda")
+
+    def step():
+        with torch.inference_mode():
+            return diffusion.p_sample(wrapped, xt, ts, noise, False)["sample"]
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    step_alone_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_group, n_dev = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            group = group_of(evt.name)
+            by_group[group] = by_group.get(group, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n_dev += 1
+    device_ms_step = sum(by_group.values())
+    print(
+        f"DiT-XL/2 512x512 DDPM {DIT_STEPS} steps cfg {DIT_CFG} batch {BATCH} (16 rows x T 1024), bf16: "
+        f"{wall / DIT_STEPS * 1e3:.2f} ms/step, {BATCH / wall:.3f} img/s; max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"launches {launches}",
+        flush=True,
+    )
+    print(
+        f"DiT step alone: host clock {step_alone_ms:.2f} ms, host enqueue {enqueue_ms:.2f} ms; device (profiler) "
+        f"{device_ms_step:.2f} ms in {n_dev} activities, idle share {max(0.0, 1 - device_ms_step / step_alone_ms):.3f}; "
+        + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])),
+        flush=True,
+    )
+    return launches
+
+
+def fit_absolute_check(sampler_mod) -> None:
+    """Phase 7c: one guided FiT-XL/2 forward with pos_kind="absolute" and
+    ffn="mlp" over MIXED_SIZES (prefix masks, T 256), kernels vs plain."""
+    from fit_tpu_torch.models.fit import create_fit
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    model = create_fit("FiT-XL/2", dtype=torch.bfloat16, pos_kind="absolute", ffn="mlp", device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    sampler_mod.cast_for_sampling(model, torch.device("cuda"))
+    inputs = guided_inputs(sampler_mod, model.hidden_size, MIXED_SIZES, gen, method="absolute")
+    rel = rel_rms(guided_forward(model, inputs), guided_forward(model, inputs, plain=True))
+    print(
+        f"FiT-XL/2 pos_kind=absolute ffn=mlp guided forward over {MIXED_SIZES}, kernels vs plain kernels: "
+        f"rel_rms {rel:.3e} (tol {FORWARD_REL_RMS:g})",
+        flush=True,
+    )
+    if not rel <= FORWARD_REL_RMS:
+        raise AssertionError("the FiT absolute forward through the kernel disagrees with the plain one")
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -683,6 +920,7 @@ def main() -> None:
     from fit_tpu_torch.core.pos_embed import rope_freqs_2d
     from fit_tpu_torch.models.fit import FiT, create_fit
     from fit_tpu_torch.ops import _build, fused_adaln, quant
+    from fit_tpu_torch.ops import attention as attn
     from fit_tpu_torch.ops import rope_attention as ra
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -714,7 +952,7 @@ def main() -> None:
     print(f"build: {len(sources)} sources in {build_s:.2f} s", flush=True)
 
     # 3. kernel vs plain, at the main path's shapes (XL: H=16, d=72; L: d=64)
-    padded16 = [256, 256, 200, 130, 64, 1, 255, 129, 256, 256, 224, 180, 256, 33, 2, 256]
+    padded16 = PADDED16
     errs = []
     fwd_main = None
     for h, d, t, lengths in [
@@ -822,7 +1060,7 @@ def main() -> None:
     print(f"int8 sampler: FiT-XL/2 256x256 DDIM {STEPS} steps batch {BATCH}: {int8_step_ms:.2f} ms/step, "
           f"{BATCH / (int8_step_ms * STEPS / 1e3):.3f} img/s (bf16: {step_ms:.2f} ms/step)", flush=True)
 
-    kernel_modules = (ra, quant, fused_adaln)
+    kernel_modules = (ra, quant, fused_adaln, attn)
     serve_launches = serve_phase(qmodel, serve_mod, make_handler, kernel_modules)
     del qmodel, qsampler
     torch.cuda.empty_cache()
@@ -836,9 +1074,29 @@ def main() -> None:
     train_step_check(ra, rope_freqs_2d)
     train_launches = trainer_phase(kernel_modules)
     bwd_main = grads[(0, torch.bfloat16)]
+    torch.cuda.empty_cache()
+
+    # 7. DiT: K1's RoPE-off and strided modes against their plain versions,
+    # DiT-XL/2 512^2 guided sampling, and the FiT absolute / MLP forward
+    print(f"phase 7 on: {smi}", flush=True)
+    strided = {}
+    for i, (name, layout, h, d, t, lengths) in enumerate(STRIDED_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            strided[(i, dtype)] = strided_case(ra, attn, rope_freqs_2d, name, layout, h, d, t, lengths, dtype, 200 + i)
+    torch.cuda.empty_cache()
+    dit_launches = dit_phase(kernel_modules)
+    torch.cuda.empty_cache()
+    fit_absolute_check(sampler_mod)
+
+    def strided_entry(name, replaces, main_case):
+        main = strided[(main_case, torch.bfloat16)]
+        err = max(r["max_abs_err"] for (i, _), r in strided.items() if STRIDED_CASES[i][0] == name)
+        return entry(name, "fit_tpu_torch/ops/csrc/rope_attention.cu", replaces, err, main["ms"], main["plain_ms"],
+                     main["bound_ms"], main["bound_by"], main["library_ms"])
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, bound_by, library_ms=None, sample_count=0):
-        by_path = {"sample": sample_count, "serve": serve_launches[name], "train": train_launches[name]}
+        by_path = {"sample": sample_count, "serve": serve_launches[name], "train": train_launches[name],
+                   "dit": dit_launches[name]}
         return {
             "name": name,
             "route": "cuda",
@@ -866,6 +1124,8 @@ def main() -> None:
         entry("silu_mul_quant", row_src, "fit_tpu/ops/quant.py:148", *rows["silu_mul_quant"]),
         entry("adaln_modulate", row_src, "fit_tpu/ops/fused_adaln.py:29", *rows["adaln_modulate"]),
         entry("swiglu_glue", row_src, "fit_tpu/ops/fused_adaln.py:66", *rows["swiglu_glue"]),
+        strided_entry("masked_attention", "fit_tpu/ops/attention.py:90", 0),
+        strided_entry("rope_flash_attention", "fit_tpu/ops/fused_attention.py:375 and :266", 3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

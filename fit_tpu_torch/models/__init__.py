@@ -1,1 +1,1 @@
-"""The FiT denoiser, its layers and the flax weight converter."""
+"""The FiT and DiT denoisers, their layers and the flax weight converter."""

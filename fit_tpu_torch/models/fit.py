@@ -1,8 +1,10 @@
 """FiT: Flexible Vision Transformer for diffusion, as a torch ``nn.Module``.
 
-Counterpart of ``fit_tpu/models/fit.py`` for ``pos_kind="rotate"`` and dense
-SwiGLU blocks: a DiT-style transformer over packed variable-length token
-sequences with per-token 2D RoPE tables and a prefix validity mask.
+Counterpart of ``fit_tpu/models/fit.py`` for dense blocks: a DiT-style
+transformer over packed variable-length token sequences with a prefix
+validity mask and per-token 2D RoPE tables (``pos_kind="rotate"``) or
+additive sincos tables (``pos_kind="absolute"``, attention without RoPE),
+with SwiGLU (``ffn="swiglu"``) or tanh-GELU MLP (``ffn="mlp"``) blocks.
 
 ``dtype`` is the compute dtype. Parameters are created in fp32 on
 ``device``; :class:`fit_tpu_torch.sampling.FiTSampler` casts them to the
@@ -56,7 +58,9 @@ class FiT(nn.Module):
     when ``train`` is true, or a latent canvas ``(N, C, H, W)`` otherwise
     (patchified and unpatchified inside; the sampling path). ``t``, ``y``:
     ``(N,)`` timesteps and labels. ``pos``: ``(N, T, head_dim)`` interleaved
-    RoPE tables. ``mask``: ``(N, T)`` boolean prefix validity mask.
+    RoPE tables (``pos_kind="rotate"``) or ``(N, T, hidden)`` sincos tables
+    added to the embedded tokens (``pos_kind="absolute"``). ``mask``:
+    ``(N, T)`` boolean prefix validity mask.
 
     ``lengths``: ``(N,)`` int32 prefix lengths, each at least 1, in place
     of ``mask`` (checked by the caller; no host round trip).
@@ -84,16 +88,21 @@ class FiT(nn.Module):
         quant: str = "none",
         dtype: torch.dtype = torch.float32,
         remat: bool = False,
+        ffn: str = "swiglu",
+        pos_kind: str = "rotate",
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown quant {quant!r}: use 'none' or 'int8'")
+        if pos_kind not in ("rotate", "absolute"):
+            raise ValueError(f"unknown pos_kind {pos_kind!r}: use 'rotate' or 'absolute'")
         self.config = dict(
             patch_size=patch_size, in_channels=in_channels, hidden_size=hidden_size, depth=depth,
             num_heads=num_heads, mlp_ratio=mlp_ratio, class_dropout_prob=class_dropout_prob,
             num_classes=num_classes, learn_sigma=learn_sigma, quant=quant, dtype=dtype, remat=remat,
+            ffn=ffn, pos_kind=pos_kind,
         )
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -105,13 +114,15 @@ class FiT(nn.Module):
         self.quant = quant
         self.dtype = dtype
         self.remat = remat
+        self.pos_kind = pos_kind
         self.plain_kernels = False
 
         self.x_embedder = nn.Linear(patch_size * patch_size * in_channels, hidden_size, device=device)
         self.t_embedder = TimestepEmbedder(hidden_size, device=device)
         self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob, device=device)
         self.blocks = nn.ModuleList(
-            FiTBlock(hidden_size, num_heads, mlp_ratio, quant, device=device) for _ in range(depth)
+            FiTBlock(hidden_size, num_heads, mlp_ratio, quant, ffn, pos_kind == "rotate", device=device)
+            for _ in range(depth)
         )
         self.final = FinalLayer(hidden_size, patch_size, self.out_channels, device=device)
         self.reset_parameters(generator)
@@ -155,7 +166,11 @@ class FiT(nn.Module):
             x = patchify(x, self.patch_size)
         n, seq = x.shape[:2]
         x = linear(self.x_embedder, x.to(self.dtype))
-        cos, sin = split_rope_tables(pos)
+        if self.pos_kind == "absolute":
+            x = x + pos.to(x.dtype)
+            cos = sin = None
+        else:
+            cos, sin = split_rope_tables(pos)
         if lengths is None:
             lengths = lengths_from_mask(mask, n, seq, x.device)
         c = self.t_embedder(t, self.dtype) + self.y_embedder(

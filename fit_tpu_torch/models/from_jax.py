@@ -4,7 +4,10 @@
 ``weight`` transposed), the qkv kernel head-grouped ``(D, 3, C)`` with bias
 ``(3, C)`` (the same memory order as flat ``(D, 3C)``), embeddings under
 ``embedding``, and the blocks either unrolled (``blocks_i``) or stacked for
-scan-over-layers (``blocks/block`` with a leading depth axis). A tree from
+scan-over-layers (``blocks/block`` with a leading depth axis). The same
+walk carries a DiT tree and a FiT tree of any ``ffn`` / ``pos_kind``
+(``ffn/fc1``, ``ffn/fc2`` of the GELU MLP): the port's attribute names are
+the flax names, so no module needs a case of its own. A tree from
 ``fit_tpu.ops.quant.quantize_params`` carries across as well: its int8
 kernels stay int8 and each ``kernel_scale`` stays fp32, the grouped qkv
 scale ``(3, C)`` flattened to ``(3C,)``. The tree must hold numpy arrays
@@ -48,8 +51,9 @@ def _leaf_entries(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
 
 
 def torch_state_dict_from_flax(params_np: Mapping, depth: int) -> Dict[str, torch.Tensor]:
-    """``fit_tpu`` FiT params (numpy leaves, with or without the outer
-    ``"params"`` key) -> the port's ``FiT.state_dict()``."""
+    """``fit_tpu`` FiT or DiT params (numpy leaves, with or without the
+    outer ``"params"`` key) -> the port's ``FiT.state_dict()`` or
+    ``DiT.state_dict()``."""
     tree = dict(params_np.get("params", params_np))
     if "blocks" in tree:  # scan-stacked: (depth, ...) leaves under blocks/block
         stacked = tree.pop("blocks")["block"]

@@ -1,7 +1,8 @@
 """Building blocks of the FiT denoiser as ``nn.Module``s.
 
-Counterpart of ``fit_tpu/models/layers.py`` (dense SwiGLU blocks, RoPE
-attention, and the int8 branches of ``quant="int8"``). Parameters may be
+Counterpart of ``fit_tpu/models/layers.py`` (dense SwiGLU or tanh-GELU MLP
+blocks, attention with RoPE or without it, and the int8 branches of
+``quant="int8"``). Parameters may be
 stored in another dtype than the compute dtype: every projection casts its
 weight to the activation's dtype, which is a no-op once the sampler has cast
 the model (``fit_tpu_torch.sampling``). Weights are ``nn.Linear`` (``weight``
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fit_tpu_torch.ops.attention import masked_attention
 from fit_tpu_torch.ops.quant import Int8Linear, adaln_quant, silu_mul_quant
 from fit_tpu_torch.ops.rope_attention import qkv_rope_attention
 
@@ -36,6 +38,7 @@ __all__ = [
     "TimestepEmbedder",
     "LabelEmbedder",
     "SwiGLU",
+    "GeluMlp",
     "SelfAttention",
     "FiTBlock",
     "FinalLayer",
@@ -159,47 +162,87 @@ class SwiGLU(nn.Module):
         return dense(self.fc2, h, dtype)
 
 
-class SelfAttention(nn.Module):
-    """Multi-head self-attention with 2D RoPE and a prefix key mask.
+class GeluMlp(nn.Module):
+    """Plain MLP ``fc2(gelu_tanh(fc1(x)))`` (``fit_tpu``'s ``GeluMlp``, the
+    ``ffn="mlp"`` option, DiT's feed-forward)."""
 
-    One flat qkv projection ``(D -> 3D)`` whose ``[q | k | v]`` output goes
-    as it is into :func:`qkv_rope_attention`: the CUDA kernels on the card
-    (the forward, and the backward when training), their plain versions on
-    the CPU or with ``plain=True``. Under
-    ``quant="int8"`` qkv and proj are ``Int8Linear``s; qkv's (3C, D) weight
-    and (3C,) scale are ``fit_tpu``'s grouped (D, 3, C) and (3, C) flattened.
+    def __init__(self, dim: int, hidden: int, quant: str = "none", device=None):
+        super().__init__()
+        self.fc1 = make_linear(dim, hidden, quant, device)
+        self.fc2 = make_linear(hidden, dim, quant, device)
+
+    def forward(self, x, dtype: torch.dtype, plain: bool = False) -> torch.Tensor:
+        return dense(self.fc2, F.gelu(dense(self.fc1, x, dtype), approximate="tanh"), dtype)
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention with a prefix key mask, with 2D RoPE or
+    (``use_rope=False``) without it.
+
+    One flat qkv projection ``(D -> 3D)``. With RoPE its ``[q | k | v]``
+    output goes as it is into :func:`qkv_rope_attention`; without, its
+    (B, H, T, d) views go into :func:`masked_attention` (``fit_tpu``'s
+    non-fused branch), and the (B, H, T, d) result, a view of (B, T, H, d)
+    memory, reshapes to (B, T, C) with no copy. Either runs the CUDA kernels
+    on the card (the forward, and the backward when training), their plain
+    versions on the CPU or with ``plain=True``. Under ``quant="int8"`` qkv
+    and proj are ``Int8Linear``s; qkv's (3C, D) weight and (3C,) scale are
+    ``fit_tpu``'s grouped (D, 3, C) and (3, C) flattened.
     """
 
-    def __init__(self, dim: int, num_heads: int, quant: str = "none", device=None):
+    def __init__(self, dim: int, num_heads: int, quant: str = "none", use_rope: bool = True, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
+        self.use_rope = use_rope
         self.qkv = make_linear(dim, 3 * dim, quant, device)
         self.proj = make_linear(dim, dim, quant, device)
 
     def forward(self, x, cos, sin, lengths, dtype: torch.dtype, plain: bool = False) -> torch.Tensor:
         qkv = dense(self.qkv, x, dtype)
-        out = qkv_rope_attention(
-            qkv, cos, sin, lengths, self.head_dim**-0.5, self.num_heads,
-            check_lengths=False, plain=plain,
-        )
+        scale = self.head_dim**-0.5
+        if self.use_rope:
+            out = qkv_rope_attention(
+                qkv, cos, sin, lengths, scale, self.num_heads, check_lengths=False, plain=plain
+            )
+        else:
+            b, t, _ = qkv.shape
+            q, k, v = qkv.view(b, t, 3, self.num_heads, self.head_dim).transpose(1, 3).unbind(2)
+            out = masked_attention(q, k, v, scale=scale, lengths=lengths, plain=plain)
+            out = out.transpose(1, 2).reshape(b, t, -1)
         return dense(self.proj, out, dtype)
 
 
 class FiTBlock(nn.Module):
-    """Pre-LN transformer block with adaLN-Zero conditioning. Under
-    ``quant="int8"`` each LayerNorm + modulate is fused with the per-row
-    int8 quantization of its result (:func:`adaln_quant`), which feeds qkv
-    and fc1."""
+    """Pre-LN transformer block with adaLN-Zero conditioning. ``ffn`` is
+    "swiglu" (FiT) or "mlp" (tanh-GELU, DiT's); ``use_rope=False`` is
+    attention without RoPE (DiT, FiT's ``pos_kind="absolute"``), whose
+    ``cos``/``sin`` are None. Under ``quant="int8"`` each LayerNorm +
+    modulate is fused with the per-row int8 quantization of its result
+    (:func:`adaln_quant`), which feeds qkv and fc1."""
 
     def __init__(
-        self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0, quant: str = "none", device=None
+        self,
+        hidden_size: int,
+        num_heads: int,
+        mlp_ratio: float = 4.0,
+        quant: str = "none",
+        ffn: str = "swiglu",
+        use_rope: bool = True,
+        device=None,
     ):
         super().__init__()
         self.quant = quant
         self.adaLN = nn.Linear(hidden_size, 6 * hidden_size, device=device)
-        self.attn = SelfAttention(hidden_size, num_heads, quant, device=device)
-        self.ffn = SwiGLU(hidden_size, int(hidden_size * mlp_ratio * 2 / 3), quant, device=device)
+        self.attn = SelfAttention(hidden_size, num_heads, quant, use_rope, device=device)
+        if ffn == "swiglu":
+            self.ffn = SwiGLU(hidden_size, int(hidden_size * mlp_ratio * 2 / 3), quant, device=device)
+        elif ffn == "mlp":
+            self.ffn = GeluMlp(hidden_size, int(hidden_size * mlp_ratio), quant, device=device)
+        elif ffn == "moe":
+            raise ValueError("ffn='moe' is not ported yet (ROADMAP Queue 1, item 14)")
+        else:
+            raise ValueError(f"unknown ffn {ffn!r}: use 'swiglu' or 'mlp'")
 
     def _modulated(self, x, shift, scale, plain: bool):
         if self.quant == "int8":

@@ -1,6 +1,7 @@
 // Tile helpers shared by the RoPE-attention forward (rope_attention.cu) and
 // backward (rope_attention_bwd.cu): 16-byte vector moves, the rotated and
-// plain tile loads from the (B, T, 3C) qkv projection, and the two per-warp
+// plain tile loads from a row-strided matrix (the (B, T, 3C) qkv projection,
+// or one head of any (B, T, H, d) view), and the two per-warp
 // WMMA products (scores = A B^T and acc += P V) that both directions are
 // built from.
 //
@@ -99,8 +100,9 @@ __device__ __forceinline__ void copy8(T* dst, const T* src) {
 // Rows [row0, row0 + 64) of one head's q or k block (columns col0..col0+d),
 // rotated pair by pair and multiplied by `mul`, into a (64, DP) tile with
 // row stride Strides::kTile. Rows at or past `valid` and columns at or past d
-// are zero.
-template <typename T, int DP>
+// are zero. With ROPE false the rotation is skipped (cos_b and sin_b are not
+// read): the rows are only multiplied by `mul`.
+template <typename T, int DP, bool ROPE = true>
 __device__ __forceinline__ void load_rotated(T* dst, const T* src, const float* cos_b,
                                              const float* sin_b, int64_t row_stride, int col0,
                                              int row0, int valid, int d, float mul) {
@@ -114,15 +116,21 @@ __device__ __forceinline__ void load_rotated(T* dst, const T* src, const float* 
     const int row = row0 + r;
     float o[8];
     if (row < valid && c < d) {
-      float x[8], cs[8], sn[8];
-      const int64_t t = static_cast<int64_t>(row) * d + c;
+      float x[8];
       load8(x, src + row * row_stride + col0 + c);
-      load8(cs, cos_b + t);
-      load8(sn, sin_b + t);
+      if constexpr (ROPE) {
+        float cs[8], sn[8];
+        const int64_t t = static_cast<int64_t>(row) * d + c;
+        load8(cs, cos_b + t);
+        load8(sn, sin_b + t);
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        o[j] = (x[j] * cs[j] - x[j + 1] * sn[j]) * mul;
-        o[j + 1] = (x[j + 1] * cs[j + 1] + x[j] * sn[j + 1]) * mul;
+        for (int j = 0; j < 8; j += 2) {
+          o[j] = (x[j] * cs[j] - x[j + 1] * sn[j]) * mul;
+          o[j + 1] = (x[j + 1] * cs[j + 1] + x[j] * sn[j + 1]) * mul;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[j] = x[j] * mul;
       }
     } else {
 #pragma unroll

@@ -3,14 +3,21 @@ its backward.
 
 Counterpart of the public API of ``fit_tpu/ops/fused_attention.py``:
 :func:`split_rope_tables`, the rotation ``(a, b) -> (-b, a)`` on interleaved
-pairs, and :func:`qkv_rope_attention` with the signature and layout of
-``qkv_rope_flash_attention``, differentiable as its ``jax.custom_vjp`` is.
+pairs, :func:`qkv_rope_attention` with the signature and layout of
+``qkv_rope_flash_attention``, and :func:`rope_flash_attention` with that of
+``rope_flash_attention`` on (B, T, H, d) operands, both differentiable as
+their ``jax.custom_vjp`` is.
 
-Two kernels, each behind its own wrapper and launch count:
+Two kernels:
 
-* K1, :func:`rope_attention_fwd` -> ``csrc/rope_attention.cu``: the forward,
-  optionally with each row's log2-sum-exp ``lse2`` (B, T, H) fp32, the
-  residual of the backward (``_qkv_forward_chunked(..., with_lse=True)``).
+* K1 -> ``csrc/rope_attention.cu``: the forward on (B, T, H, d) operands
+  read by stride, with RoPE or (null tables) without it, optionally with
+  each row's log2-sum-exp ``lse2`` (B, T, H) fp32, the residual of the
+  backward (``_qkv_forward_chunked(..., with_lse=True)``). Three wrappers
+  launch it, each with its own count: :func:`rope_attention_fwd` (the
+  packed projection; ``launches``), :func:`rope_flash_attention`
+  (``flash_launches``) and ``fit_tpu_torch.ops.attention.masked_attention``
+  (RoPE off; its module's ``launches``).
 * K2, :func:`rope_attention_bwd` -> ``csrc/rope_attention_bwd.cu``: dqkv
   (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T.
 
@@ -38,26 +45,31 @@ __all__ = [
     "rotate_pairs",
     "rope_attention_reference",
     "rope_attention_backward_reference",
+    "rope_flash_reference",
     "rope_attention_fwd",
     "rope_attention_bwd",
     "qkv_rope_attention",
+    "rope_flash_attention",
     "launches",
     "bwd_launches",
+    "flash_launches",
     "reset_launches",
 ]
 
 LOG2_E = 1.4426950408889634  # softmax as exp2 with log2(e) folded into q
 
-# Launches of K1 (rope_attention_fwd) and of K2 (rope_attention_bwd) since
-# the last reset_launches().
+# Launches of K1 through rope_attention_fwd, of K2 (rope_attention_bwd) and
+# of K1 through rope_flash_attention since the last reset_launches().
 launches = 0
 bwd_launches = 0
+flash_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches
+    global launches, bwd_launches, flash_launches
     launches = 0
     bwd_launches = 0
+    flash_launches = 0
 
 
 def split_rope_tables(freqs_cis: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
@@ -80,15 +92,30 @@ def _flat_qkv(qkv: torch.Tensor) -> torch.Tensor:
     return qkv
 
 
+def _rope_heads(x, cos, sin):
+    """fp32 rope(x) of a (B, T, H, d) operand, with (B, T, d) tables."""
+    x = x.float()
+    return x * cos.float()[:, :, None, :] + rotate_pairs(x) * sin.float()[:, :, None, :]
+
+
 def _rotated_heads(qkv, cos, sin, num_heads):
     """fp32 (B, T, H, d) rope(q), rope(k) and v of a (B, T, 3C) projection."""
     b, t, w = qkv.shape
     d = w // 3 // num_heads
     q, k, v = qkv.float().reshape(b, t, 3, num_heads, d).unbind(2)
-    cos_h, sin_h = cos.float()[:, :, None, :], sin.float()[:, :, None, :]
-    qr = q * cos_h + rotate_pairs(q) * sin_h
-    kr = k * cos_h + rotate_pairs(k) * sin_h
-    return qr, kr, v
+    return _rope_heads(q, cos, sin), _rope_heads(k, cos, sin), v
+
+
+def _softmax_attention(qr, kr, v, lengths, scale, with_lse):
+    """fp32 (B, T, H, d) attention of rotated q and k over the keys below
+    each row's length, for every query row; with ``with_lse`` also lse2."""
+    t = qr.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", qr, kr) * scale
+    scores = scores.masked_fill(~_valid_keys(lengths, t, qr.device), float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v.float())
+    if not with_lse:
+        return out, None
+    return out, (torch.logsumexp(scores, dim=-1) * LOG2_E).transpose(1, 2).contiguous()
 
 
 def _valid_keys(lengths, t, device) -> torch.Tensor:
@@ -117,15 +144,17 @@ def rope_attention_reference(
     """
     qkv = _flat_qkv(qkv)
     b, t, w = qkv.shape
-    qr, kr, v = _rotated_heads(qkv, cos, sin, num_heads)
-    scores = torch.einsum("bqhd,bkhd->bhqk", qr, kr) * scale
-    scores = scores.masked_fill(~_valid_keys(lengths, t, qkv.device), float("-inf"))
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, t, w // 3).to(qkv.dtype)
-    if not with_lse:
-        return out
-    lse2 = (torch.logsumexp(scores, dim=-1) * LOG2_E).transpose(1, 2).contiguous()
-    return out, lse2
+    out, lse2 = _softmax_attention(*_rotated_heads(qkv, cos, sin, num_heads), lengths, scale, with_lse)
+    out = out.reshape(b, t, w // 3).to(qkv.dtype)
+    return (out, lse2) if with_lse else out
+
+
+def rope_flash_reference(q, k, v, cos, sin, lengths, scale) -> torch.Tensor:
+    """Plain PyTorch version of K1 on (B, T, H, d) operands, all math in
+    fp32 (``fit_tpu``'s ``_xla_reference``). Returns (B, T, H, d) in q's
+    dtype."""
+    out, _ = _softmax_attention(_rope_heads(q, cos, sin), _rope_heads(k, cos, sin), v, lengths, scale, False)
+    return out.to(q.dtype)
 
 
 def rope_attention_backward_reference(
@@ -173,22 +202,39 @@ def rope_attention_backward_reference(
     return dqkv.reshape(b, t, w).to(qkv.dtype)
 
 
+def _check_head_dim(d: int) -> None:
+    if d % 8 or d > 128:
+        raise ValueError(f"the kernel takes a head_dim that is a multiple of 8, at most 128; got {d}")
+
+
+def _check_tables(cos, sin, lengths, b, t, d, device) -> None:
+    """cos/sin (B, T, d) fp32 (or both None: no RoPE) and lengths (B,) int32,
+    contiguous and 16-byte aligned on ``device``."""
+    if (cos is None) != (sin is None):
+        raise ValueError("cos and sin are both tables or both None")
+    for name, tab in (("cos", cos), ("sin", sin)):
+        if tab is None:
+            continue
+        if tab.dtype != torch.float32 or tuple(tab.shape) != (b, t, d):
+            raise ValueError(f"{name} must be fp32 {(b, t, d)}, got {tab.dtype} {tuple(tab.shape)}")
+        _check_operand(name, tab, device)
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths must be int32 ({b},), got {lengths.dtype} {tuple(lengths.shape)}")
+    _check_operand("lengths", lengths, device)
+
+
 def _check_cuda_args(qkv, cos, sin, lengths, num_heads, check_lengths) -> int:
+    """The packed (B, T, 3C) projection of K1's packed entry and of K2,
+    which reads and writes it contiguous."""
     if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qkv must be bf16 or fp32, got {qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv must be (B, T, 3*C) with C divisible by {num_heads} heads, got {tuple(qkv.shape)}")
     b, t, w = qkv.shape
     d = w // 3 // num_heads
-    if d % 8 or d > 128:
-        raise ValueError(f"the kernel takes a head_dim that is a multiple of 8, at most 128; got {d}")
-    for name, tab in (("cos", cos), ("sin", sin)):
-        if tab.dtype != torch.float32 or tuple(tab.shape) != (b, t, d):
-            raise ValueError(f"{name} must be fp32 {(b, t, d)}, got {tab.dtype} {tuple(tab.shape)}")
-    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
-        raise ValueError(f"lengths must be int32 ({b},), got {lengths.dtype} {tuple(lengths.shape)}")
-    for name, x in (("qkv", qkv), ("cos", cos), ("sin", sin), ("lengths", lengths)):
-        _check_operand(name, x, qkv.device)
+    _check_head_dim(d)
+    _check_tables(cos, sin, lengths, b, t, d, qkv.device)
+    _check_operand("qkv", qkv, qkv.device)
     if check_lengths and bool((lengths < 1).any()):
         raise ValueError("every length must be at least 1")
     return d
@@ -201,6 +247,55 @@ def _check_operand(name: str, x: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary (the kernel moves 16-byte vectors)")
+
+
+def _bth_strides(x: torch.Tensor) -> "list[int]":
+    """The batch, token and head element strides of a (B, T, H, d) operand;
+    a dim of size 1 is never stepped over, so its stride is 0."""
+    return [st if n > 1 else 0 for n, st in zip(x.shape[:3], x.stride()[:3])]
+
+
+def _check_views(q, k, v) -> None:
+    """(B, T, H, d) operands of any strides that K1 reads as they are: one
+    dtype, shape and device, the head dim contiguous, the batch, token and
+    head strides multiples of 8 elements and each base 16-byte aligned, so
+    every row segment moves as 16-byte vectors."""
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bf16 or fp32, got {q.dtype}")
+    if q.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, T, H, d), got {tuple(q.shape)}")
+    _check_head_dim(q.shape[-1])
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != q.dtype or x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"{name} is {x.dtype} {tuple(x.shape)} on {x.device}; q is {q.dtype} {tuple(q.shape)} on {q.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous (stride 1), got strides {x.stride()}")
+        if any(st % 8 for st in _bth_strides(x)):
+            raise ValueError(f"{name}'s batch, token and head strides must be multiples of 8 elements, got {x.stride()}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel moves 16-byte vectors)")
+
+
+def _k1_launch(q, k, v, out, cos, sin, lengths, q_mul, lse=None) -> None:
+    """Launches K1 on (B, T, H, d) operands that the caller has checked
+    (:func:`_check_views`, :func:`_check_tables`), writing ``out`` (B, T, H,
+    d, any strides the checks allow) and, when given, ``lse`` (B, T, H)
+    fp32. ``cos`` None runs attention without RoPE. Raises if the launch
+    fails; counts nothing (each entry counts its own launches)."""
+    b, t, h, d = q.shape
+    lib = _lib("rope_attention")
+    strides = [st for x in (q, k, v, out) for st in _bth_strides(x)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rope_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+            None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+            lengths.data_ptr(), None if lse is None else lse.data_ptr(),
+            b, t, h, d, q_mul, int(q.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        msg = lib.rope_attention_error_string(err).decode()
+        raise RuntimeError(f"rope_attention_fwd launch failed: {msg} (cudaError {err})")
 
 
 def _check_bwd_args(qkv, g, out, lse, num_heads) -> None:
@@ -240,17 +335,8 @@ def rope_attention_fwd(
     b, t, w = qkv.shape
     out = torch.empty((b, t, w // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, t, num_heads), dtype=torch.float32, device=qkv.device) if with_lse else None
-    lib = _lib("rope_attention")
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.rope_attention_fwd(
-            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None,
-            b, t, num_heads, d, scale * LOG2_E, int(qkv.dtype == torch.bfloat16), stream,
-        )
-    if err != 0:
-        msg = lib.rope_attention_error_string(err).decode()
-        raise RuntimeError(f"rope_attention_fwd launch failed: {msg} (cudaError {err})")
+    q, k, v = qkv.view(b, t, 3, num_heads, d).unbind(2)  # views: K1 reads them by stride
+    _k1_launch(q, k, v, out.view(b, t, num_heads, d), cos, sin, lengths, scale * LOG2_E, lse)
     launches += 1
     return (out, lse) if with_lse else out
 
@@ -353,10 +439,55 @@ def qkv_rope_attention(
     )
 
 
-# source -> (C entry, its argument kinds: pointer, int, float)
+def rope_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float,
+    *,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Fused RoPE + masked attention on (B, T, H, d) operands, the
+    counterpart of ``fit_tpu``'s ``rope_flash_attention``.
+
+    q, k, v: (B, T, H, d), possibly strided views (for instance of a (B, T,
+    3, H, d) projection): K1 reads them by stride, with no copy. cos/sin:
+    (B, T, d) fp32 pair-duplicated tables; lengths: (B,) int32 prefix
+    lengths, each at least 1 (not read back to check). Returns (B, T, H, d)
+    in q's dtype. On a CPU tensor, or with ``plain``, the plain version
+    :func:`rope_flash_reference`; on a CUDA tensor K1.
+
+    Differentiable in q, k and v: when a gradient is wanted they are
+    stacked into one packed (B, T, 3C) tensor (one copy) that goes through
+    :func:`qkv_rope_attention`'s autograd Function, K1 with lse then K2,
+    counted as that entry's launches. A K2 on strided operands is later work.
+    """
+    global flash_launches
+    b, t, h, d = q.shape
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        qkv = torch.stack([q, k, v], dim=2).reshape(b, t, 3 * h * d)
+        out = _RopeAttention.apply(qkv, cos, sin, lengths, scale, h, False, plain)
+        return out.view(b, t, h, d)
+    if plain or q.device.type == "cpu":
+        return rope_flash_reference(q, k, v, cos, sin, lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no rope attention kernel for device {q.device}")
+    _check_views(q, k, v)
+    _check_tables(cos, sin, lengths, b, t, d, q.device)
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    _k1_launch(q, k, v, out, cos, sin, lengths, scale * LOG2_E)
+    flash_launches += 1
+    return out
+
+
+# source -> (C entry, its argument kinds: pointer, int64, int, float)
 _ENTRIES = {
-    # qkv, cos, sin, lengths, out, lse, batch, seq, heads, head_dim, q_mul, is_bf16, stream
-    "rope_attention": ("rope_attention_fwd", "pppppp" "iiii" "fip"),
+    # q, k, v, out, their (batch, token, head) strides, cos, sin, lengths, lse,
+    # batch, seq, heads, head_dim, q_mul, is_bf16, stream
+    "rope_attention": ("rope_attention_fwd", "pppp" + "l" * 12 + "pppp" "iiii" "fip"),
     # qkv, g, out, lse, delta, cos, sin, lengths, dqkv, batch, seq, heads, head_dim, scale, is_bf16, stream
     "rope_attention_bwd": ("rope_attention_bwd", "ppppppppp" "iiii" "fip"),
 }
@@ -368,7 +499,7 @@ def _lib(source: str) -> ctypes.CDLL:
     entry, kinds = _ENTRIES[source]
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        ctype = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        ctype = {"p": ctypes.c_void_p, "l": ctypes.c_int64, "i": ctypes.c_int, "f": ctypes.c_float}
         fn.argtypes = [ctype[k] for k in kinds]
         fn.restype = ctypes.c_int
         err = getattr(lib, f"{source}_error_string")

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from fit_tpu_torch.core.geometry import pad_latent_to_canvas, token_count, unpad_latent
-from fit_tpu_torch.core.pos_embed import rope_freqs_2d
+from fit_tpu_torch.core.pos_embed import rope_freqs_2d, sincos_2d
 from fit_tpu_torch.diffusion.gaussian import create_diffusion
 from fit_tpu_torch.diffusion.samplers import ddim_sample_loop, p_sample_loop
 from fit_tpu_torch.models.fit import FiT
@@ -32,19 +32,27 @@ def create_pos_embed(
     w: int,
     patch_size: int,
     max_length: int,
-    head_dim: int,
+    embed_dim: int,
+    method: str = "rotate",
 ) -> Tuple[np.ndarray, int]:
-    """Inference RoPE table for an (h, w) latent, zero-padded to the token
-    budget, with VisionNTK on. Returns ``(table (1, T, head_dim) fp32,
+    """Inference pos table for an (h, w) latent, zero-padded to the token
+    budget: the RoPE table with VisionNTK on (``method="rotate"``,
+    ``embed_dim`` the head dim) or the 2D sincos table (``"absolute"``,
+    ``embed_dim`` the hidden size). Returns ``(table (1, T, embed_dim) fp32,
     valid_t)``; past the budget the grid is the canvas and T = valid_t."""
-    fill = rope_freqs_2d(
-        head_dim, h // patch_size, w // patch_size, max_length=max_length
-    ).astype(np.float32)
+    nh, nw = h // patch_size, w // patch_size
+    if method == "rotate":
+        fill = rope_freqs_2d(embed_dim, nh, nw, max_length=max_length)
+    elif method == "absolute":
+        fill = sincos_2d(embed_dim, nh, nw)
+    else:
+        raise ValueError(f"unknown method {method!r}: use 'rotate' or 'absolute'")
+    fill = fill.astype(np.float32)
     valid_t = fill.shape[0]
     if valid_t > max_length:
         table = fill
     else:
-        table = np.zeros((max_length, head_dim), np.float32)
+        table = np.zeros((max_length, embed_dim), np.float32)
         table[:valid_t] = fill
     return table[None], valid_t
 
@@ -65,8 +73,8 @@ def mask_lengths(mask: np.ndarray) -> np.ndarray:
     return lengths
 
 
-def cast_for_sampling(model: FiT, device: torch.device) -> FiT:
-    """Move ``model`` to ``device`` and cast, in place, its floating
+def cast_for_sampling(model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """Move ``model`` (a ``FiT`` or a ``DiT``) to ``device`` and cast, in place, its floating
     parameters and buffers to the compute dtype ``model.dtype``, as
     ``fit_tpu``'s ``_cast_params`` does: int8 weights stay int8 and every
     ``kernel_scale`` stays fp32 (``nn.Module.to(dtype=)`` would cast them)."""
@@ -89,7 +97,10 @@ class FiTSampler:
     moved to ``device`` once, here; LayerNorm statistics stay fp32 inside
     the blocks. ``device`` is the card unless the caller names another
     (``"cpu"``); without a card that raises. ``sampler`` is "ddim" or "ddpm".
-    Sizes are in pixels; latents are ``vae_scale`` times smaller.
+    Sizes are in pixels; latents are ``vae_scale`` times smaller. The model
+    is a FiT with ``pos_kind="rotate"``, as in ``fit_tpu``; a DiT samples
+    through ``fit_tpu_torch.diffusion.samplers`` with its
+    ``forward_with_cfg`` (``fit_tpu_torch.models.dit``).
     """
 
     def __init__(
@@ -106,6 +117,8 @@ class FiTSampler:
     ):
         if sampler not in ("ddim", "ddpm"):
             raise ValueError(f"unknown sampler {sampler!r}: use 'ddim' or 'ddpm'")
+        if not isinstance(model, FiT) or model.pos_kind != "rotate":
+            raise ValueError("FiTSampler samples a FiT with pos_kind='rotate'")
         self.device = resolve_device(device)
         self.model = cast_for_sampling(model, self.device)
         self.num_sampling_steps = num_sampling_steps

@@ -277,3 +277,156 @@ def test_backward_argument_checks():
         ra._check_bwd_args(q, gt, out.bfloat16(), lse, H6)
     with pytest.raises(ValueError, match="contiguous"):
         ra._check_bwd_args(q, gt.transpose(0, 1).contiguous().transpose(0, 1), out, lse, H6)
+
+
+# --- K1's strided entries: masked_attention (RoPE off, (B, H, T, d)) and
+# rope_flash_attention ((B, T, H, d)); plain versions here ----------------
+
+from fit_tpu.ops import attention as jat  # noqa: E402
+from fit_tpu_torch.ops import attention as at  # noqa: E402
+
+MASK_ATOL = 2e-5  # fp32, another summation order than XLA's and the interpreted kernel's
+# (T, lengths): full, padded, a one-key row, a row past a 128-row block
+MASK_CASES = [(256, (256, 256)), (256, (240, 130)), (256, (256, 1)), (128, (100, 128))]
+
+
+def _bhtd(seed, t, lengths, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(len(lengths), H6, t, D16)).astype(dtype) for _ in range(3))
+    mask = np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+    return q, k, v, mask
+
+
+def _valid_bhtd(got, want, lengths, atol):
+    for i, n in enumerate(lengths):
+        np.testing.assert_allclose(got[i, :, :n], want[i, :, :n], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("backend", ["xla", "flash"])
+@pytest.mark.parametrize("t,lengths", MASK_CASES, ids=[str(c[1]) for c in MASK_CASES])
+def test_masked_attention_matches_fit_tpu(backend, t, lengths):
+    """The plain version against fit_tpu's masked_attention: the XLA
+    backend and the Pallas _flash_kernel in interpret mode. Valid query rows
+    only (the flash kernel writes zeros on wholly padded query blocks)."""
+    q, k, v, mask = _bhtd(t + lengths[1], t, lengths)
+    at.reset_launches()
+    got = at.masked_attention(*(torch.from_numpy(a) for a in (q, k, v, mask))).numpy()
+    assert at.launches == 0
+    want = np.asarray(jat.masked_attention(*(jnp.asarray(a) for a in (q, k, v, mask)), backend=backend))
+    assert got.shape == want.shape == q.shape
+    _valid_bhtd(got, want, lengths, MASK_ATOL)
+
+
+@pytest.mark.parametrize("t,lengths", MASK_CASES, ids=[str(c[1]) for c in MASK_CASES])
+def test_masked_attention_gradient_matches_jax_grad_of_flash(t, lengths):
+    """The autograd Function's recompute backward against jax.grad through
+    the flash path's custom VJP, with an upstream gradient on every row
+    (both zero it on padded query rows)."""
+    q, k, v, mask = _bhtd(2 * t + lengths[1], t, lengths)
+    g = np.random.default_rng(t).normal(size=q.shape).astype(np.float32)
+    want = jax.grad(
+        lambda a, b, c: jnp.sum(jat.masked_attention(a, b, c, jnp.asarray(mask), backend="flash") * g),
+        argnums=(0, 1, 2),
+    )(*(jnp.asarray(a) for a in (q, k, v)))
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    got = torch.autograd.grad(at.masked_attention(*xs, torch.from_numpy(mask)), xs, torch.from_numpy(g))
+    for gx, wx in zip(got, want):
+        _valid_bhtd(gx.numpy(), np.asarray(wx), lengths, GRAD_ATOL)
+
+
+def test_masked_attention_bf16_and_lengths_entry():
+    """bf16 operands against fit_tpu's bf16 XLA path (one bf16 rounding of
+    p and of the output on values of order 1), and ``lengths`` in place of
+    the mask."""
+    lengths = (256, 130)
+    q, k, v, mask = _bhtd(11, 256, lengths)
+    xs = [torch.from_numpy(a).bfloat16() for a in (q, k, v)]
+    got = at.masked_attention(*xs, lengths=torch.tensor(lengths, dtype=torch.int32))
+    assert got.dtype == torch.bfloat16
+    want = jat.masked_attention(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in xs), jnp.asarray(mask), backend="xla")
+    _valid_bhtd(got.float().numpy(), np.asarray(want, np.float32), lengths, 3e-2)
+
+
+def test_masked_attention_mask_contract():
+    q, k, v, mask = _bhtd(12, 16, (16, 9))
+    lengths = at.mask_to_lengths(torch.from_numpy(mask))
+    assert lengths.dtype == torch.int32 and lengths.tolist() == [16, 9]
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(jat.mask_to_lengths(jnp.asarray(mask))))
+    holed = mask.copy()
+    holed[0, 3] = False
+    with pytest.raises(ValueError, match="prefix"):
+        at.masked_attention(*(torch.from_numpy(a) for a in (q, k, v, holed)))
+    full = at.masked_attention(*(torch.from_numpy(a) for a in (q, k, v)))  # no mask: every key
+    ones = at.masked_attention(*(torch.from_numpy(a) for a in (q, k, v)), torch.ones(2, 16, dtype=torch.bool))
+    torch.testing.assert_close(full, ones, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["transpose", "direct"])
+@pytest.mark.parametrize("lengths", [(64, 64), (50, 1)], ids=["full", "padded"])
+def test_rope_flash_attention_matches_fit_tpu(monkeypatch, layout, lengths):
+    """The plain version of rope_flash_attention against fit_tpu's, in both
+    of its layouts (FIT_TPU_ATTN_LAYOUT: the (B, H, T, d) _kernel behind
+    transposes, and _kernel_direct on (B, T, H, d) blocks), on (B, T, H, d)
+    views of one projection; valid rows only."""
+    monkeypatch.setenv("FIT_TPU_ATTN_LAYOUT", layout)
+    t = 64
+    qkv, fc, lens, cos, sin, _ = _port_inputs(20 + lengths[1], t, lengths)
+    q, k, v = torch.from_numpy(qkv).view(2, t, 3, H6, D16).unbind(2)
+    ra.reset_launches()
+    got = ra.rope_flash_attention(q, k, v, cos, sin, torch.from_numpy(lens), D16**-0.5)
+    assert (ra.flash_launches, ra.launches) == (0, 0)
+    jcos, jsin = jfa.split_rope_tables(jnp.asarray(fc))
+    want = jfa.rope_flash_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)), jcos, jsin, jnp.asarray(lens), D16**-0.5)
+    assert got.shape == want.shape == (2, t, H6, D16)
+    valid_rows_close(got.numpy(), np.asarray(want), lens)
+
+
+def test_rope_flash_attention_gradient_matches_jax_grad():
+    """Stacked into the packed autograd Function: its gradient in q, k, v
+    against jax.grad through fit_tpu's rope_flash_attention."""
+    t, lengths = 64, (64, 33)
+    qkv, fc, lens, cos, sin, _ = _port_inputs(30, t, lengths)
+    g = np.random.default_rng(31).normal(size=(2, t, H6, D16)).astype(np.float32)
+    q, k, v = (a[:, :, 0] for a in np.split(qkv.reshape(2, t, 3, H6, D16), 3, axis=2))
+    jcos, jsin = jfa.split_rope_tables(jnp.asarray(fc))
+    want = jax.grad(
+        lambda a, b, c: jnp.sum(jfa.rope_flash_attention(a, b, c, jcos, jsin, jnp.asarray(lens), D16**-0.5) * g),
+        argnums=(0, 1, 2),
+    )(*(jnp.asarray(a) for a in (q, k, v)))
+    xs = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(True) for a in (q, k, v)]
+    out = ra.rope_flash_attention(*xs, cos, sin, torch.from_numpy(lens), D16**-0.5)
+    got = torch.autograd.grad(out, xs, torch.from_numpy(g))
+    for gx, wx in zip(got, want):
+        np.testing.assert_allclose(gx.numpy(), np.asarray(wx), atol=GRAD_ATOL, rtol=0)
+
+
+def _strided_views():
+    base = torch.zeros((2, 16, 3 * H6 * D16))
+    return list(base.view(2, 16, 3, H6, D16).unbind(2))
+
+
+@pytest.mark.parametrize(
+    "bad,error,match",
+    [
+        (lambda v: v, None, None),
+        (lambda v: [v[0].half()] + v[1:], TypeError, "bf16 or fp32"),
+        (lambda v: [x[..., :12] for x in v], ValueError, "multiple of 8"),
+        (lambda v: [v[0][:, :8]] + v[1:], ValueError, "q is torch.float32"),
+        (lambda v: [torch.zeros(2, 16, H6, 2 * D16)[..., ::2]] + v[1:], ValueError, "contiguous"),
+        (lambda v: [torch.zeros(2, 16 * H6 * D16 + 4)[:, :-4].view(2, 16, H6, D16)] + v[1:], ValueError, "multiples of 8"),
+        (lambda v: [torch.zeros(2 * 16 * H6 * D16 + 1)[1:].view(2, 16, H6, D16)] + v[1:], ValueError, "16-byte"),
+    ],
+    ids=["ok", "dtype", "d%8", "shape", "last-dim", "strides", "aligned"],
+)
+def test_strided_operand_checks(bad, error, match):
+    """The checks K1's strided entries make before a launch (device-agnostic,
+    so they run here on CPU tensors): views of a packed projection pass,
+    with any batch, token and head strides that are multiples of 8 elements."""
+    views = bad(_strided_views())
+    if error is None:
+        ra._check_views(*views)
+        ra._check_views(*(x.transpose(1, 2).transpose(1, 2) for x in views))
+        assert ra._bth_strides(views[0]) == [16 * 3 * H6 * D16, 3 * H6 * D16, D16]
+        return
+    with pytest.raises(error, match=match):
+        ra._check_views(*views)

@@ -8,7 +8,9 @@ Tolerances, against the plain versions on the same inputs:
 - attention (max abs error on valid query rows, against the fp32 plain
   version): 1e-4 for fp32 (fp32 FMA dots, another summation order), 3e-2
   for bf16 (bf16 rounding of the rotated q/k, of p and of the output, the
-  bound fit_tpu uses for its bf16 dot kernels);
+  bound fit_tpu uses for its bf16 dot kernels); the same for K1's strided
+  (B, T, H, d) and (B, H, T, d) operands with RoPE and without it, and
+  for the gradients through them (max abs over max |plain|);
 - K1's lse and the backward K2 (dq, dk, dv each, every row): max abs
   error over max(1, max |plain|) within 1e-4 in fp32, over max |plain|
   within 3e-2 in bf16 (bf16 rounding of the rotated q/k, of p, of ds and of
@@ -28,6 +30,7 @@ import pytest
 import torch
 
 from fit_tpu_torch.core.pos_embed import rope_freqs_2d
+from fit_tpu_torch.ops import attention as attn
 from fit_tpu_torch.ops import fused_adaln, quant
 from fit_tpu_torch.ops import rope_attention as ra
 
@@ -153,6 +156,123 @@ def test_autograd_function_launches_k1_with_lse_and_k2(cuda_device):
     with torch.inference_mode():
         ra.qkv_rope_attention(x, cos, sin, lens, 0.125, 12)
     assert (ra.launches, ra.bwd_launches) == (1, 0)
+
+
+PADDED16 = (256, 256, 200, 130, 64, 1, 255, 129, 256, 256, 224, 180, 256, 33, 2, 256)
+STRIDED_SHAPES = [
+    (16, 72, 1024, (1024,) * 4),  # DiT-XL/2 512^2 (16 rows with CFG there)
+    (16, 72, 1024, (1024, 700, 513, 1)),
+    (12, 64, 256, PADDED16),
+    (2, 16, 40, (40, 33, 17)),  # T not a multiple of 64
+    (2, 128, 128, (128, 70)),
+    (4, 40, 64, (64, 5)),
+]
+
+
+def assert_valid_rows_close(got, want, lengths, atol, rows_axis=1):
+    for i, n in enumerate(lengths):
+        g, w = got[i].float(), want[i].float()
+        if rows_axis == 2:  # (H, T, d)
+            g, w = g[:, :n], w[:, :n]
+        else:
+            g, w = g[:n], w[:n]
+        err = (g - w).abs().max().item()
+        assert err <= atol, f"row {i} (length {n}): max abs err {err} > {atol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("h,d,t,lengths", STRIDED_SHAPES)
+def test_masked_attention_kernel_matches_plain_version(cuda_device, dtype, atol, h, d, t, lengths):
+    """K1 with RoPE off on (B, H, T, d) views of a packed projection, as
+    SelfAttention(use_rope=False) feeds it."""
+    qkv, _, _, lens = make_inputs(4, h, d, t, lengths, cuda_device, dtype)
+    q, k, v = qkv.view(len(lengths), t, 3, h, d).transpose(1, 3).unbind(2)
+    ra.reset_launches()
+    attn.reset_launches()
+    got = attn.masked_attention(q, k, v, lengths=lens)
+    torch.cuda.synchronize()
+    assert (attn.launches, ra.launches, ra.flash_launches) == (1, 0, 0)
+    assert got.dtype == dtype and got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    want = attn.masked_attention_reference(q.float(), k.float(), v.float(), lens, d**-0.5)
+    assert torch.isfinite(got).all()
+    assert_valid_rows_close(got, want, lengths, atol, rows_axis=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "projection-views"])
+@pytest.mark.parametrize("h,d,t,lengths", [(16, 72, 256, PADDED16), (16, 72, 256, (256,) * 16), (2, 16, 40, (40, 7))])
+def test_rope_flash_attention_kernel_matches_plain_version(cuda_device, dtype, atol, packed, h, d, t, lengths):
+    """K1 with RoPE on (B, T, H, d) operands: contiguous tensors, and views
+    of a (B, T, 3, H, d) projection."""
+    qkv, cos, sin, lens = make_inputs(5, h, d, t, lengths, cuda_device, dtype)
+    b = len(lengths)
+    if packed:
+        q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+    else:
+        q, k, v = (x.contiguous() for x in qkv.view(b, t, 3, h, d).unbind(2))
+    ra.reset_launches()
+    got = ra.rope_flash_attention(q, k, v, cos, sin, lens, d**-0.5)
+    torch.cuda.synchronize()
+    assert (ra.flash_launches, ra.launches) == (1, 0)
+    assert got.dtype == dtype and got.shape == (b, t, h, d)
+    want = ra.rope_flash_reference(q.float(), k.float(), v.float(), cos, sin, lens, d**-0.5)
+    assert_valid_rows_close(got, want, lengths, atol)
+    # the same numbers as the packed entry: one kernel reads both layouts
+    packed_out = ra.qkv_rope_attention(qkv, cos, sin, lens, d**-0.5, h).view(b, t, h, d)
+    assert_valid_rows_close(got, packed_out, lengths, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_gradients_through_the_strided_entries(cuda_device, dtype):
+    """masked_attention: K1 forward, then the PyTorch recompute backward;
+    rope_flash_attention: stacked into the packed autograd Function (K1 with
+    lse, then K2), against K2's plain version, at K2's tolerances."""
+    h, d, t, lengths = 12, 64, 96, (96, 50, 1)
+    qkv, cos, sin, lens = make_inputs(6, h, d, t, lengths, cuda_device, dtype)
+    b = len(lengths)
+    g = torch.randn((b, t, h, d), generator=torch.Generator(cuda_device).manual_seed(2), device=cuda_device).to(dtype)
+    views = [x.clone().requires_grad_(True) for x in qkv.view(b, t, 3, h, d).unbind(2)]
+    ra.reset_launches()
+    attn.reset_launches()
+    out = attn.masked_attention(*(x.transpose(1, 2) for x in views), lengths=lens)
+    grads = torch.autograd.grad(out, views, g.transpose(1, 2))
+    want = attn.masked_attention_backward_reference(
+        *(x.detach().transpose(1, 2) for x in views), g.transpose(1, 2), lens, d**-0.5
+    )
+    for got_x, want_x in zip(grads, want):
+        assert_grad_close(got_x, want_x.transpose(1, 2), dtype)
+    out = ra.rope_flash_attention(*views, cos, sin, lens, d**-0.5)
+    grads = torch.autograd.grad(out, views, g)
+    torch.cuda.synchronize()
+    assert (attn.launches, ra.launches, ra.bwd_launches, ra.flash_launches) == (1, 1, 1, 0)
+    o, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
+    want = ra.rope_attention_backward_reference(qkv, g.reshape(b, t, h * d), o, lse, cos, sin, lens, d**-0.5, h)
+    want = want.view(b, t, 3, h, d).unbind(2)
+    for got_x, want_x in zip(grads, want):
+        assert_grad_close(got_x, want_x, dtype)
+
+
+def assert_grad_close(got, want, dtype):
+    """K2's bar: max abs error over max |plain| (bf16) or over max(1, max |plain|) (fp32)."""
+    ref = want.float()
+    denom = ref.abs().max().item() if dtype == torch.bfloat16 else max(1.0, ref.abs().max().item())
+    assert (got.float() - ref).abs().max().item() <= GRAD_REL[dtype] * denom
+
+
+@pytest.mark.cuda
+def test_strided_entries_reject_bad_views(cuda_device):
+    qkv, cos, sin, lens = make_inputs(7, 2, 16, 16, (16, 16), cuda_device, torch.float32)
+    wide = torch.zeros((2, 16, 3 * 32 + 4), device=cuda_device)[..., : 3 * 32]  # token stride 100
+    q, k, v = wide.unflatten(-1, (3, 2, 16)).unbind(2)
+    ra.reset_launches()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ra.rope_flash_attention(q, k, v, cos, sin, lens, 0.25)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attn.masked_attention(*(x.transpose(1, 2) for x in (q, k, v)), lengths=lens)
+    assert ra.flash_launches == 0
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
