@@ -9,7 +9,9 @@ card and the CUDA toolkit:
 Phases, each printing its lines; any failure raises (non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compiles the CUDA kernels from the sources in the checkout, one
-     nvcc per source, all at once;
+     nvcc per source, all at once, and prints ptxas's registers and spill
+     bytes of each bf16 K1 (mma.sync) instantiation; one that spills at DP
+     64 or 80 fails the run;
   3. kernel vs plain: the RoPE + masked attention kernel against its plain
      PyTorch version at the shapes of the main path, with the time of both;
   3b. the row kernels (adaLN and SwiGLU glue, with and without the int8
@@ -44,7 +46,9 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      forward against the plain kernels, with one step's host and device
      time by group; then one guided FiT-XL/2 forward with
      ``pos_kind="absolute"`` and ``ffn="mlp"`` over mixed sizes (prefix
-     masks), kernels vs plain.
+     masks), kernels vs plain. Then the bf16 K1's device time at the three
+     main-path shapes (phases 3, 6a and 7a) beside its predecessor's, the
+     bound and SDPA.
 The line before the last is a JSON object with each kernel's numbers
 (launches by path: sample, serve, train, dit); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -55,6 +59,7 @@ from __future__ import annotations
 
 import io
 import json
+import re
 import subprocess
 import threading
 import time
@@ -171,6 +176,36 @@ GRAD_SHAPES = [
     (16, 72, 2, 2304, [2304, 1500]),
     (16, 72, 1, 4096, [4000]),
 ]
+
+
+# The bf16 K1 (mma.sync, rope_attention_mma.cuh) at the three main-path
+# shapes, with its predecessor's device us there (the WMMA kernel with
+# scores in shared memory, timed by this script on an H100 80GB HBM3 at
+# 700 W; PERF.md section 6).
+K1_EARLIER_US = {
+    "DiT-XL/2 512^2 B16 T1024 H16 d72 RoPE off": 1420.3,
+    "FiT-XL/2 B16 T256 H16 d72 RoPE, mixed lengths": 115.4,
+    "FiT-B/2 B64 T256 H12 d64 RoPE + lse": 209.4,
+}
+NO_SPILL_DPS = (64, 80)  # the main paths' paddings: their bf16 K1 must not spill
+
+
+def mma_ptxas(log_text: str) -> "dict[tuple[int, bool], dict]":
+    """ptxas -v of the bf16 K1 instantiations in one build log, by (DP,
+    RoPE): registers and spill store / load bytes."""
+    out, key = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            inst = re.search(r"rope_attention_mma_kernelILi(\d+)ELb([01])E", m.group(1))
+            key = (int(inst.group(1)), inst.group(2) == "1") if inst else None
+            if key:
+                out[key] = {}
+        elif key and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[key]["spill_stores"], out[key]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif key and (m := re.search(r"Used (\d+) registers", line)):
+            out[key]["registers"] = int(m.group(1))
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> "tuple[float, str]":
@@ -950,6 +985,14 @@ def main() -> None:
         })
         print(f"build: {name}.cu; ptxas: {ptxas}", flush=True)
     print(f"build: {len(sources)} sources in {build_s:.2f} s", flush=True)
+    mma = mma_ptxas("".join(log.read_text() for log in _build.BUILD_DIR.glob("rope_attention_*.log")))
+    for (dp, rope), info in sorted(mma.items()):
+        print(f"build: bf16 K1 (mma.sync) DP {dp} RoPE {'on' if rope else 'off'}: {info.get('registers')} "
+              f"registers, spill stores {info.get('spill_stores')} B, spill loads {info.get('spill_loads')} B",
+              flush=True)
+    spilled = [k for k, info in mma.items() if k[0] in NO_SPILL_DPS and (info.get("spill_stores"), info.get("spill_loads")) != (0, 0)]
+    if len(mma) != 10 or spilled:
+        raise AssertionError(f"bf16 K1: {len(mma)} of 10 instantiations in the ptxas log; spills at (DP, RoPE) {spilled}")
 
     # 3. kernel vs plain, at the main path's shapes (XL: H=16, d=72; L: d=64)
     padded16 = PADDED16
@@ -1087,6 +1130,21 @@ def main() -> None:
     dit_launches = dit_phase(kernel_modules)
     torch.cuda.empty_cache()
     fit_absolute_check(sampler_mod)
+    k1_now = {
+        "DiT-XL/2 512^2 B16 T1024 H16 d72 RoPE off": strided[(0, torch.bfloat16)],
+        "FiT-XL/2 B16 T256 H16 d72 RoPE, mixed lengths": fwd_main,
+        "FiT-B/2 B64 T256 H12 d64 RoPE + lse": {
+            "ms": bwd_main["fwd_ms"], "bound_ms": bwd_main["fwd_bound_ms"], "bound_by": bwd_main["fwd_bound_by"],
+            "library_ms": bwd_main["sdpa_fwd_ms"],
+        },
+    }
+    for shape, r in k1_now.items():
+        print(
+            f"K1 bf16 (mma.sync) at {shape}: device us {r['ms'] * 1e3:.1f} (before it: {K1_EARLIER_US[shape]}), "
+            f"bound {r['bound_ms'] * 1e3:.1f} by {r['bound_by']}, SDPA fwd {r['library_ms'] * 1e3:.1f}; "
+            f"{K1_EARLIER_US[shape] / (r['ms'] * 1e3):.2f}x faster, {r['ms'] / r['library_ms']:.2f}x SDPA; {smi}",
+            flush=True,
+        )
 
     def strided_entry(name, replaces, main_case):
         main = strided[(main_case, torch.bfloat16)]

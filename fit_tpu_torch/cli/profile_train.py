@@ -36,7 +36,7 @@ from fit_tpu_torch.train.step import make_train_step, split_for_accumulation
 
 LATENTS = [(32, 32), (28, 36), (24, 40), (36, 28)]  # (h, w) of the 4-channel latents
 GROUPS = [  # (group, substrings of the kernel names in it), first match wins
-    ("K1 attention forward", ("rope_attention_kernel",)),
+    ("K1 attention forward", ("rope_attention_kernel", "rope_attention_mma_kernel")),
     ("K2 attention backward", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
     ("optimizer + EMA", ("multi_tensor", "foreach", "adam")),

@@ -1,8 +1,9 @@
 // Fused 2D-RoPE + prefix-masked attention forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernels fit_tpu/ops/fused_attention.py::_qkv_kernel
-// (natural (B, T, 3C) layout), ::_kernel (head-major layout) and
-// ::_kernel_direct ((B, T, H, d) blocks). All three compute
+// (natural (B, T, 3C) layout), ::_kernel (head-major layout),
+// ::_kernel_direct ((B, T, H, d) blocks) and the forward of
+// ::_qkv_chunked_kernel with its lse output (below). All compute
 //
 //   q_rot = q*cos + rot(q)*sin,  k_rot = k*cos + rot(k)*sin,  rot(a, b) = (-b, a)
 //   out   = softmax over valid keys (q_rot k_rot^T * scale) v
@@ -23,45 +24,49 @@
 // multiple of 8 elements and every base 16-byte aligned, so every row
 // segment moves as 16-byte vectors; the wrapper checks all of this.
 //
-// Design. One block per (query tile of 64 rows, head, batch row), 4 warps,
-// each warp owning 16 query rows. A loop over 64-key tiles takes the place of
-// the TPU's sequential grid and stops at lengths[b]; the last tile masks by
-// column. RoPE is applied while a tile is copied to shared memory, with
-// scale*log2(e) folded into q so the softmax uses exp2. The softmax is
-// online (fp32 running max and sum per row, two lanes per row) and the
-// output is normalised once at the end, o/z. For bf16 the two products run on WMMA 16x16x16
-// tensor-core tiles with fp32 accumulation; the head dim is zero-padded in
-// shared memory to DP, a compile-time width that is a multiple of 16 (XL's
-// d = 72 pads to 80), and the padding never reaches the output. The
-// probabilities are rounded to bf16 before both the PV product and the row
-// sum, so o/z averages the same values the product consumed. fp32 inputs
-// run the same schedule with fp32 FMA dots; that path exists to hold the
-// kernel against the fp32 reference.
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s), at the main
+// paths' shapes: FiT-XL/2 sampling (B 16, T 256, H 16, d 72, RoPE, mixed
+// lengths) and FiT-B/2 training (B 64, T 256, H 12, d 64, RoPE, lse) move
+// ~40 and ~110 MB for ~5 and ~7 GFLOP, so bytes bound them (~12 and ~33
+// us); DiT-XL/2 at 512^2 (B 16 with CFG, T 1024, H 16, d 72, no RoPE) does
+// 4*B*H*T^2*d = 77 GFLOP against ~151 MB, so operations bound it (~78 us).
+// At T 256 a call is a few waves of short blocks, and tile latency and
+// launch count set its time; at T 1024 the key loop's work does (the two
+// products, their fragment reads and the softmax between them).
 //
-// With a non-null `lse` the kernel also writes each row's log2-sum-exp,
-// lse2 = m + log2(z) from the running max and sum it already keeps, as a
-// (B, T, H) fp32 tensor: the residual of the backward (rope_attention_bwd.cu),
-// which recomputes the probabilities as exp2(s - lse2). This replaces the
-// with_lse output of fit_tpu/ops/fused_attention.py::_qkv_chunked_kernel,
-// in the same layout and exp2 domain. A null `lse` (sampling, serving)
-// leaves the kernel as it was.
+// Design, bf16 (rope_attention_mma.cuh). One block per (query tile of 64
+// rows, head, batch row), 4 warps of 16 query rows; a loop over 64-key
+// tiles takes the place of the TPU's sequential grid and stops at
+// lengths[b], the last tile masking by column. Scores and the output
+// accumulator stay in registers: both products run on mma.sync m16n8k16
+// with fp32 accumulation, q as A fragments loaded once, k and v as B
+// fragments by ldmatrix (.trans for v), and the probabilities go from the
+// score accumulators straight into the second product's A fragments. The
+// online softmax runs on the quad of lanes that shares a row, in the exp2
+// domain (scale * log2(e) is folded into q while it is rotated). Key and
+// value tiles stream through a two-stage shared-memory ring by cp.async,
+// the next tile's copies in flight during this tile's products; with RoPE,
+// each thread rotates its own chunks of the next key tile in place once
+// they land. The head dim is zero-padded to DP, a multiple of 16 (d = 72
+// pads to 80); the padding never reaches the output. The probabilities are
+// rounded to bf16 before both the PV product and the row sum, so o / l
+// averages the same values the product consumed.
 //
-// Bound at FiT-XL/2, T = 256 (d = 72): per (batch row, head) about
-// 2*2*T^2*d = 19 MFLOP against 4*T*d*2 = 147 KB of q, k, v and output, about
-// 128 FLOP/byte, under the H100's bf16 ridge of ~295. A call at B=16, H=16
-// is ~38 MB and ~5 GFLOP, i.e. microseconds at either roofline, so latency
-// (of the tile loads and of the per-row softmax), launch count and occupancy
-// set its time, not the tensor cores. Tile loads therefore move 16-byte
-// vectors with compile-time trip counts, so each thread has several loads in
-// flight; shared-memory rows are padded off the bank period; and P is
-// written over S, which keeps the footprint at 3 blocks per SM for d <= 80.
-// WGMMA, TMA, a pipelined key loop and warp specialisation are left for
-// later work.
+// Design, fp32: the schedule that preceded the bf16 kernel, kept as it was
+// (rope_attention_kernel below): the same blocks and key loop, synchronous
+// tile loads between two barriers, the scores and output accumulator in
+// shared memory, fp32 FMA dots, two lanes per softmax row. It exists to
+// hold the kernel against the fp32 reference at 1e-4; tensor cores cannot
+// serve it.
 //
-// DiT-XL/2 at 512^2 (B 16 with CFG, H 16, T 1024, d 72, no RoPE) is the
-// first shape that is bound by operations: 4*B*H*T^2*d = 77 GFLOP, ~78 us at
-// 989 TFLOP/s, against ~151 MB of q, k, v and output, ~45 us at 3.35 TB/s.
+// With a non-null `lse` both kernels also write each row's log2-sum-exp,
+// lse2 = m + log2(l) from the running max and sum they keep, as a (B, T,
+// H) fp32 tensor: the residual of the backward (rope_attention_bwd.cu),
+// which recomputes the probabilities as exp2(s - lse2) from the same
+// rotated, scaled and rounded q (load_rotated in rope_tiles.cuh). A null
+// `lse` (sampling, serving) changes nothing else.
 
+#include "rope_attention_mma.cuh"
 #include "rope_tiles.cuh"
 
 namespace {
@@ -71,11 +76,6 @@ constexpr size_t smem_bytes() {
   return 3 * kBlockQ * Strides<T, DP>::kTile * sizeof(T) +
          (kBlockQ * kLdS + kBlockQ * Strides<T, DP>::kOut) * sizeof(float);
 }
-
-// Element strides of one (B, T, H, d) operand; the head dim is contiguous.
-struct Layout {
-  int64_t b, t, h;
-};
 
 template <typename T, int DP, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
@@ -209,15 +209,23 @@ struct Args {
   float q_mul;
 };
 
+// bf16 runs the mma.sync kernel (rope_attention_mma.cuh), fp32 the FMA one.
 template <typename T, int DP, bool ROPE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, DP>();
-  cudaError_t err = cudaFuncSetAttribute(rope_attention_kernel<T, DP, ROPE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr size_t smem = kMma ? mma_smem_bytes<DP>() : smem_bytes<T, DP>();
+  const auto kernel = [] {
+    if constexpr (kMma) {
+      return rope_attention_mma_kernel<DP, ROPE>;
+    } else {
+      return rope_attention_kernel<T, DP, ROPE>;
+    }
+  }();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.heads, a.batch);
-  rope_attention_kernel<T, DP, ROPE><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.out), a.lq, a.lk, a.lv, a.lo, static_cast<const float*>(a.cos_t),
       static_cast<const float*>(a.sin_t), static_cast<const int*>(a.lengths), a.lse, a.seq, a.heads,

@@ -11,9 +11,11 @@ their ``jax.custom_vjp`` is.
 Two kernels:
 
 * K1 -> ``csrc/rope_attention.cu``: the forward on (B, T, H, d) operands
-  read by stride, with RoPE or (null tables) without it, optionally with
-  each row's log2-sum-exp ``lse2`` (B, T, H) fp32, the residual of the
-  backward (``_qkv_forward_chunked(..., with_lse=True)``). Three wrappers
+  read by stride (bf16 on ``mma.sync`` tensor-core tiles,
+  ``csrc/rope_attention_mma.cuh``; fp32 on FMA dots), with RoPE or (null
+  tables) without it, optionally with each row's log2-sum-exp ``lse2``
+  (B, T, H) fp32, the residual of the backward
+  (``_qkv_forward_chunked(..., with_lse=True)``). Three wrappers
   launch it, each with its own count: :func:`rope_attention_fwd` (the
   packed projection; ``launches``), :func:`rope_flash_attention`
   (``flash_launches``) and ``fit_tpu_torch.ops.attention.masked_attention``

@@ -10,7 +10,10 @@ Tolerances, against the plain versions on the same inputs:
   for bf16 (bf16 rounding of the rotated q/k, of p and of the output, the
   bound fit_tpu uses for its bf16 dot kernels); the same for K1's strided
   (B, T, H, d) and (B, H, T, d) operands with RoPE and without it, and
-  for the gradients through them (max abs over max |plain|);
+  for the gradients through them (max abs over max |plain|); the bf16
+  kernel over every layout, RoPE on and off, lse on and off, every
+  compiled padding and T from 1 to 4096 at 3e-2, two launches bit for bit
+  equal, and K2 fed by its lse within 3e-2 of max |exact VJP|;
 - K1's lse and the backward K2 (dq, dk, dv each, every row): max abs
   error over max(1, max |plain|) within 1e-4 in fp32, over max |plain|
   within 3e-2 in bf16 (bf16 rounding of the rotated q/k, of p, of ds and of
@@ -273,6 +276,103 @@ def test_strided_entries_reject_bad_views(cuda_device):
     with pytest.raises(ValueError, match="multiples of 8"):
         attn.masked_attention(*(x.transpose(1, 2) for x in (q, k, v)), lengths=lens)
     assert ra.flash_launches == 0
+
+
+# The bf16 K1 (the mma.sync kernel) over its whole contract, through the C
+# entry's wrapper: the operands as views of the packed (B, T, 3C) projection,
+# contiguous (B, T, H, d) tensors, or contiguous (B, H, T, d) tensors read
+# through their transpose (the output in the same layout); RoPE on and off;
+# lse on and off; every compiled padding (d = 72 pads to 80); and T from 1
+# to 4096, each batch holding a full row, a padded one and a one-key row.
+K1_LAYOUTS = ["packed", "bthd", "bhtd"]
+K1_T_LENGTHS = [(1, (1, 1)), (96, (96, 50, 1)), (256, (256, 131, 1)), (4096, (4096, 1000, 1))]
+
+
+def k1_operands(layout, h, d, t, lengths, device, seed):
+    """bf16 (B, T, H, d) q, k, v and an empty output in ``layout``, with
+    cos, sin and lengths."""
+    qkv, cos, sin, lens = make_inputs(seed, h, d, t, lengths, device, torch.bfloat16)
+    b = len(lengths)
+    q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+    if layout == "packed":
+        out = torch.empty((b, t, h * d), dtype=qkv.dtype, device=device).view(b, t, h, d)
+    elif layout == "bthd":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+        out = torch.empty_like(q)
+    else:
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+        out = torch.empty_like(q)  # keeps q's (B, H, T, d) memory order
+    return q, k, v, out, cos, sin, lens
+
+
+def k1_plain(q, k, v, cos, sin, lens, scale, with_lse):
+    qf, kf = (ra._rope_heads(x, cos, sin) if cos is not None else x.float() for x in (q, k))
+    return ra._softmax_attention(qf, kf, v.float(), lens, scale, with_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,lengths", K1_T_LENGTHS, ids=[f"T{t}" for t, _ in K1_T_LENGTHS])
+@pytest.mark.parametrize("d", [16, 32, 64, 72, 128])
+@pytest.mark.parametrize("with_lse", [False, True], ids=["no-lse", "lse"])
+@pytest.mark.parametrize("rope", [False, True], ids=["rope-off", "rope-on"])
+@pytest.mark.parametrize("layout", K1_LAYOUTS)
+def test_bf16_k1_matches_plain_version(cuda_device, layout, rope, with_lse, d, t, lengths):
+    h = 2 if t == 4096 else 4
+    q, k, v, out, cos, sin, lens = k1_operands(layout, h, d, t, lengths, cuda_device, seed=d + t)
+    if not rope:
+        cos = sin = None
+    b = len(lengths)
+    lse = torch.empty((b, t, h), dtype=torch.float32, device=cuda_device) if with_lse else None
+    ra._k1_launch(q, k, v, out, cos, sin, lens, d**-0.5 * ra.LOG2_E, lse)
+    torch.cuda.synchronize()
+    want, lse_want = k1_plain(q, k, v, cos, sin, lens, d**-0.5, with_lse)
+    assert torch.isfinite(out).all()
+    assert_valid_rows_close(out, want, lengths, 3e-2)
+    if with_lse:
+        assert torch.isfinite(lse).all()
+        tol = GRAD_REL[torch.bfloat16] * max(1.0, lse_want.abs().max().item())
+        assert (lse - lse_want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", K1_LAYOUTS)
+@pytest.mark.parametrize("rope", [False, True], ids=["rope-off", "rope-on"])
+def test_bf16_k1_launches_repeat_bit_for_bit(cuda_device, layout, rope):
+    h, d, t, lengths = 16, 72, 1024, (1024, 700, 1)
+    q, k, v, out, cos, sin, lens = k1_operands(layout, h, d, t, lengths, cuda_device, seed=11)
+    if not rope:
+        cos = sin = None
+    lse = torch.empty((len(lengths), t, h), dtype=torch.float32, device=cuda_device)
+    out2, lse2 = torch.empty_like(out), torch.empty_like(lse)
+    ra._k1_launch(q, k, v, out, cos, sin, lens, d**-0.5 * ra.LOG2_E, lse)
+    ra._k1_launch(q, k, v, out2, cos, sin, lens, d**-0.5 * ra.LOG2_E, lse2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "h,d,t,lengths",
+    [
+        (12, 64, 256, (256, 200, 130, 64, 1, 255, 129, 33)),  # FiT-B/2 training
+        (16, 72, 4096, (4000,)),  # XL at 1024^2: the last key tile holds 32 keys
+        (2, 128, 96, (96, 1)),
+    ],
+)
+def test_k2_from_the_bf16_k1_lse_matches_autograd(cuda_device, h, d, t, lengths):
+    """K2 fed by the bf16 K1's out and lse against the exact VJP (autograd
+    through the fp32 plain forward): dq, dk and dv each within 3e-2 of max
+    |plain|."""
+    qkv, cos, sin, lens = make_inputs(12, h, d, t, lengths, cuda_device, torch.bfloat16)
+    g = torch.randn((len(lengths), t, h * d), generator=torch.Generator(cuda_device).manual_seed(3), device=cuda_device)
+    out, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
+    got = ra.rope_attention_bwd(qkv, g.bfloat16(), out, lse, cos, sin, lens, d**-0.5, h).float()
+    x = qkv.float().requires_grad_(True)
+    (want,) = torch.autograd.grad(ra.rope_attention_reference(x, cos, sin, lens, d**-0.5, h), x, g.bfloat16().float())
+    c = h * d
+    for i in range(3):
+        part, ref = got[..., i * c : (i + 1) * c], want[..., i * c : (i + 1) * c]
+        assert (part - ref).abs().max().item() <= GRAD_REL[torch.bfloat16] * ref.abs().max().item(), f"d{'qkv'[i]}"
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -131,6 +131,22 @@ def test_fit_sampler_sample_matches_jax(tiny_models):
     assert_latents_close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("height,width", [(128, 192), (192, 192)], ids=["T96", "T144"])
+def test_fit_sampler_sample_past_the_token_budget_matches_jax(tiny_models, height, width):
+    """Past the 64-token budget the sequence grows to the size's own token
+    count (T = 96, 144) and RoPE switches to VisionNTK; the key loop then
+    runs over more keys than the budget."""
+    jm, params, tm = tiny_models
+    h, w = height // 8, width // 8
+    z = np.random.default_rng(5).normal(size=(2, 4, h, w)).astype(np.float32)
+    want = JaxSampler(jm, sampler="ddim", **SAMPLER_KW).sample(
+        params, [6, 7], jax.random.PRNGKey(0), height, width, z=jnp.asarray(z)
+    )
+    got = FiTSampler(tm, sampler="ddim", **TORCH_KW).sample([6, 7], height, width, z=torch.from_numpy(z))
+    assert got.shape == (2, 4, h, w) and (h // 2) * (w // 2) > SAMPLER_KW["max_length"]
+    assert_latents_close(got.numpy(), want)
+
+
 def test_fit_sampler_sample_mixed_matches_jax(tiny_models):
     jm, params, tm = tiny_models
     sizes = [(128, 128), (96, 160), (64, 96)]
