@@ -10,8 +10,9 @@ Phases, each printing its lines; any failure raises (non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compiles the CUDA kernels from the sources in the checkout, one
      nvcc per source, all at once, and prints ptxas's registers and spill
-     bytes of each bf16 K1 (mma.sync) instantiation; one that spills at DP
-     64 or 80 fails the run;
+     bytes of each bf16 K1 (mma.sync) instantiation and of each bf16 K2
+     pass (dk/dv, dq); one that spills at DP 64 or 80, or a missing
+     instantiation, fails the run;
   3. kernel vs plain: the RoPE + masked attention kernel against its plain
      PyTorch version at the shapes of the main path, with the time of both;
   3b. the row kernels (adaLN and SwiGLU glue, with and without the int8
@@ -30,7 +31,9 @@ Phases, each printing its lines; any failure raises (non-zero exit):
   6. training: K1's lse output and the backward K2 against their plain
      versions (and K2 against autograd through the plain forward) from the
      FiT-B/2 micro-batch to XL at T 4096, with the kernel, plain and SDPA
-     times and the bound; one FiT-B/2 bf16 training step through the
+     times and the bound, the bf16 K2's time beside its predecessor's and,
+     at B/2 and T 4096, each of its passes alone (prologue, dk/dv, dq);
+     one FiT-B/2 bf16 training step through the
      kernels against the same step through their plain versions; then the
      Trainer on synthetic latents: a 6-step pad-packed run, the same run
      stopped at step 4 and resumed by a fresh Trainer (the loss stream must
@@ -187,18 +190,26 @@ K1_EARLIER_US = {
     "FiT-XL/2 B16 T256 H16 d72 RoPE, mixed lengths": 115.4,
     "FiT-B/2 B64 T256 H12 d64 RoPE + lse": 209.4,
 }
-NO_SPILL_DPS = (64, 80)  # the main paths' paddings: their bf16 K1 must not spill
+NO_SPILL_DPS = (64, 80)  # the main paths' paddings: their bf16 K1 and K2 must not spill
+# The bf16 K2 at the GRAD_SHAPES cases it was timed at before its mma.sync
+# passes, with its predecessor's device us there (the WMMA kernels with
+# scores and accumulators in shared memory, timed by this script on an H100
+# 80GB HBM3 at 700 W; PERF.md section 6), by case index.
+K2_EARLIER_US = {0: 639.6, 3: 321.9, 4: 984.9, 5: 2881.0, 6: 4916.1}
+K2_PASS_CASES = (0, 6)  # the B/2 main shape and XL T 4096: per-pass device times
+K2_PASSES = {"prologue": 1, "dkdv": 2, "dq": 4}  # the bits of rope_attention_bwd's passes
 
 
-def mma_ptxas(log_text: str) -> "dict[tuple[int, bool], dict]":
-    """ptxas -v of the bf16 K1 instantiations in one build log, by (DP,
-    RoPE): registers and spill store / load bytes."""
+def ptxas_by_kernel(log_text: str, pattern: str) -> "dict[tuple, dict]":
+    """ptxas -v of the kernel instantiations in one build log whose mangled
+    name matches ``pattern``, keyed by its groups: registers and spill
+    store / load bytes."""
     out, key = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            inst = re.search(r"rope_attention_mma_kernelILi(\d+)ELb([01])E", m.group(1))
-            key = (int(inst.group(1)), inst.group(2) == "1") if inst else None
+            inst = re.search(pattern, m.group(1))
+            key = inst.groups() if inst else None
             if key:
                 out[key] = {}
         elif key and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
@@ -206,6 +217,30 @@ def mma_ptxas(log_text: str) -> "dict[tuple[int, bool], dict]":
         elif key and (m := re.search(r"Used (\d+) registers", line)):
             out[key]["registers"] = int(m.group(1))
     return out
+
+
+def mma_ptxas(log_text: str) -> "dict[tuple[int, bool], dict]":
+    """The bf16 K1 instantiations, by (DP, RoPE)."""
+    found = ptxas_by_kernel(log_text, r"rope_attention_mma_kernelILi(\d+)ELb([01])E")
+    return {(int(dp), rope == "1"): info for (dp, rope), info in found.items()}
+
+
+def k2_mma_ptxas(log_text: str) -> "dict[tuple[str, int], dict]":
+    """The bf16 K2 passes (rope_attention_bwd_mma.cuh), by (pass, DP)."""
+    found = ptxas_by_kernel(log_text, r"bwd_(dkdv|dq)_mma_kernelILi(\d+)E")
+    return {(name, int(dp)): info for (name, dp), info in found.items()}
+
+
+def check_no_spill(what: str, found: dict, dp_of, expected: int) -> None:
+    """Prints each instantiation's registers and spills; fails on a spill
+    at a main-path padding (NO_SPILL_DPS) or a missing instantiation."""
+    for key, info in sorted(found.items()):
+        print(f"build: {what} {key}: {info.get('registers')} registers, spill stores {info.get('spill_stores')} B, "
+              f"spill loads {info.get('spill_loads')} B", flush=True)
+    spilled = [k for k, info in found.items()
+               if dp_of(k) in NO_SPILL_DPS and (info.get("spill_stores"), info.get("spill_loads")) != (0, 0)]
+    if len(found) != expected or spilled:
+        raise AssertionError(f"{what}: {len(found)} of {expected} instantiations in the ptxas log; spills at {spilled}")
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> "tuple[float, str]":
@@ -228,6 +263,24 @@ def attention_bounds(b, t, h, d, lengths, dtype, with_lse=True):
     return fwd, bwd
 
 
+def k2_pass_bounds(b, t, h, d, lengths, dtype) -> dict:
+    """Each bf16 K2 pass's bound as a function of its own inputs and
+    outputs: the prologue reads q, k, g, out, cos/sin and lse and writes the
+    rotated q and k and the head-major lse and delta (no products); the
+    dk/dv pass reads those, v, g and the tables, writes dk and dv and does 4
+    products (S, dP, dv, dk) over the valid keys; the dq pass the same
+    reads, writes dq and does 3 (S, dP, dq)."""
+    es = torch.finfo(dtype).bits // 8
+    act, tabs, stat = b * t * h * d * es, 2 * b * t * d * 4, b * t * h * 4
+    pair = sum(2 * t * n * d * h for n in lengths)
+    reads = 2 * act + act + act + tabs + 2 * stat + 4 * b  # rotated q, k; v; g; tables; lse, delta; lengths
+    return {
+        "prologue": bound_ms(4 * act + tabs + stat + 2 * act + 2 * stat, 0, dtype),
+        "dkdv": bound_ms(reads + 2 * act, 4 * pair, dtype),
+        "dq": bound_ms(reads + act, 3 * pair, dtype),
+    }
+
+
 def sdpa_ms(ra, qkv, cos, sin, lens, h, with_bwd=True):
     """The library yardstick, which excludes RoPE: F.scaled_dot_product_attention
     on pre-rotated q, k (B, H, T, d) with the boolean key mask. Returns the
@@ -247,10 +300,12 @@ def sdpa_ms(ra, qkv, cos, sin, lens, h, with_bwd=True):
     return fwd, bwd
 
 
-def attention_grad_case(ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed):
+def attention_grad_case(ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed, per_pass=False):
     """Phase 6a on one shape: K1 with lse and K2 against their plain versions
-    (and K2 against autograd through the plain forward), with device times.
-    Returns a dict of the errors, times and bounds."""
+    (and K2 against autograd through the plain forward), with device times;
+    with ``per_pass``, also each K2 pass's device time alone (after a whole
+    call has filled the scratch). Returns a dict of the errors, times and
+    bounds."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
     g = torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype)  # on every row, padded too
@@ -283,6 +338,18 @@ def attention_grad_case(ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed):
     lse_tol = GRAD_REL[dtype] * max(1.0, lse_want.abs().max().item())
     res["fwd_ms"] = device_ms(lambda: ra.rope_attention_fwd(qkv, cos, sin, lens, scale, h, with_lse=True, check_lengths=False))
     res["bwd_ms"] = device_ms(lambda: ra.rope_attention_bwd(qkv, g, out, lse, cos, sin, lens, scale, h))
+    if per_pass:
+        by_pass, scratch = torch.empty_like(qkv), ra._k2_scratch(qkv, h)
+        ra._k2_launch(qkv, g, out, lse, cos, sin, lens, scale, h, by_pass, *scratch)
+        bounds = k2_pass_bounds(b, t, h, d, lengths, dtype)
+        for name, bit in K2_PASSES.items():
+            res[f"bwd_{name}_ms"] = device_ms(
+                lambda: ra._k2_launch(qkv, g, out, lse, cos, sin, lens, scale, h, by_pass, *scratch, passes=bit)
+            )
+            res[f"bwd_{name}_bound_ms"], res[f"bwd_{name}_bound_by"] = bounds[name]
+        torch.cuda.synchronize()
+        if not torch.equal(by_pass, dqkv):
+            raise AssertionError(f"K2's passes launched one by one disagree with a whole call at {(b, t, h, d, dtype)}")
     res["fwd_plain_ms"] = device_ms(lambda: ra.rope_attention_reference(qkv, cos, sin, lens, scale, h, with_lse=True), iters=5)
     res["bwd_plain_ms"] = device_ms(lambda: ra.rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lens, scale, h), iters=5)
     res["sdpa_fwd_ms"], res["sdpa_bwd_ms"] = sdpa_ms(ra, qkv, cos, sin, lens, h)
@@ -985,14 +1052,9 @@ def main() -> None:
         })
         print(f"build: {name}.cu; ptxas: {ptxas}", flush=True)
     print(f"build: {len(sources)} sources in {build_s:.2f} s", flush=True)
-    mma = mma_ptxas("".join(log.read_text() for log in _build.BUILD_DIR.glob("rope_attention_*.log")))
-    for (dp, rope), info in sorted(mma.items()):
-        print(f"build: bf16 K1 (mma.sync) DP {dp} RoPE {'on' if rope else 'off'}: {info.get('registers')} "
-              f"registers, spill stores {info.get('spill_stores')} B, spill loads {info.get('spill_loads')} B",
-              flush=True)
-    spilled = [k for k, info in mma.items() if k[0] in NO_SPILL_DPS and (info.get("spill_stores"), info.get("spill_loads")) != (0, 0)]
-    if len(mma) != 10 or spilled:
-        raise AssertionError(f"bf16 K1: {len(mma)} of 10 instantiations in the ptxas log; spills at (DP, RoPE) {spilled}")
+    logs = {name: "".join(log.read_text() for log in _build.BUILD_DIR.glob(f"{name}_*.log")) for name in sources}
+    check_no_spill("bf16 K1 (mma.sync) (DP, RoPE)", mma_ptxas(logs["rope_attention"]), lambda k: k[0], 10)
+    check_no_spill("bf16 K2 (mma.sync) (pass, DP)", k2_mma_ptxas(logs["rope_attention_bwd"]), lambda k: k[1], 10)
 
     # 3. kernel vs plain, at the main path's shapes (XL: H=16, d=72; L: d=64)
     padded16 = PADDED16
@@ -1113,7 +1175,24 @@ def main() -> None:
     grads = {}
     for i, (h, d, b, t, lengths) in enumerate(GRAD_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
-            grads[(i, dtype)] = attention_grad_case(ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed=100 + i)
+            grads[(i, dtype)] = attention_grad_case(
+                ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed=100 + i,
+                per_pass=i in K2_PASS_CASES and dtype == torch.bfloat16,
+            )
+    for i, earlier in K2_EARLIER_US.items():
+        h, d, b, t, lengths = GRAD_SHAPES[i]
+        r = grads[(i, torch.bfloat16)]
+        passes = ", ".join(
+            f"{n} {r[f'bwd_{n}_ms'] * 1e3:.1f} (bound {r[f'bwd_{n}_bound_ms'] * 1e3:.1f} by {r[f'bwd_{n}_bound_by']})"
+            for n in K2_PASSES if f"bwd_{n}_ms" in r
+        )
+        print(
+            f"K2 bf16 (mma.sync) at B{b} T{t} H{h} d{d}: device us {r['bwd_ms'] * 1e3:.1f} (before it: {earlier})"
+            f"{f'; passes alone, us: {passes}' if passes else ''}; bound {r['bwd_bound_ms'] * 1e3:.1f} by "
+            f"{r['bwd_bound_by']}, SDPA bwd {r['sdpa_bwd_ms'] * 1e3:.1f}; {earlier / (r['bwd_ms'] * 1e3):.2f}x faster, "
+            f"{r['bwd_ms'] / r['sdpa_bwd_ms']:.2f}x SDPA; {smi}",
+            flush=True,
+        )
     train_step_check(ra, rope_freqs_2d)
     train_launches = trainer_phase(kernel_modules)
     bwd_main = grads[(0, torch.bfloat16)]
@@ -1175,9 +1254,11 @@ def main() -> None:
         entry("rope_attention_fwd", "fit_tpu_torch/ops/csrc/rope_attention.cu", "fit_tpu/ops/fused_attention.py:806",
               max(errs), fwd_main["ms"], fwd_main["plain_ms"], fwd_main["bound_ms"], fwd_main["bound_by"],
               fwd_main["library_ms"], sample_launches),
-        entry("rope_attention_bwd", "fit_tpu_torch/ops/csrc/rope_attention_bwd.cu",
-              "fit_tpu/ops/fused_attention.py:1173", bwd_main["max_abs_err"], bwd_main["bwd_ms"],
-              bwd_main["bwd_plain_ms"], bwd_main["bwd_bound_ms"], bwd_main["bwd_bound_by"], bwd_main["sdpa_bwd_ms"]),
+        {**entry("rope_attention_bwd", "fit_tpu_torch/ops/csrc/rope_attention_bwd.cu",
+                 "fit_tpu/ops/fused_attention.py:1173", bwd_main["max_abs_err"], bwd_main["bwd_ms"],
+                 bwd_main["bwd_plain_ms"], bwd_main["bwd_bound_ms"], bwd_main["bwd_bound_by"],
+                 bwd_main["sdpa_bwd_ms"]),
+         "passes_ms": {n: bwd_main[f"bwd_{n}_ms"] for n in K2_PASSES}},
         entry("adaln_quant", row_src, "fit_tpu/ops/quant.py:184", *rows["adaln_quant"]),
         entry("silu_mul_quant", row_src, "fit_tpu/ops/quant.py:148", *rows["silu_mul_quant"]),
         entry("adaln_modulate", row_src, "fit_tpu/ops/fused_adaln.py:29", *rows["adaln_modulate"]),

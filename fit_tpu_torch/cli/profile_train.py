@@ -12,9 +12,10 @@ synchronize), then ``--steps`` more under ``torch.profiler``, whose own
 overhead slows the host, so it gives only the device side. Prints the
 time per optimizer step, the host's enqueue time, the device's kernel time
 per step by group (GEMMs, the attention forward K1, the backward K2, the
-optimizer and EMA, the rest), the device's idle share (1 - kernel time
-over step time) and the peak memory. The data loader is not in the window:
-this times the step alone.
+optimizer and EMA, the rest) and K2's by kernel (bf16: prologue, dk/dv,
+dq), the device's idle share (1 - kernel time over step time) and the
+peak memory. The data loader is not in the window: this times the step
+alone.
 """
 
 from __future__ import annotations
@@ -35,9 +36,13 @@ from fit_tpu_torch.train.state import create_train_state, make_optimizer
 from fit_tpu_torch.train.step import make_train_step, split_for_accumulation
 
 LATENTS = [(32, 32), (28, 36), (24, 40), (36, 28)]  # (h, w) of the 4-channel latents
+# K2's kernels: in bf16 the prologue and the two mma.sync passes, in fp32
+# delta and the two FMA passes
+K2_KERNELS = ("bwd_prologue_kernel", "bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel", "dkdv_kernel", "dq_kernel",
+              "delta_kernel")
 GROUPS = [  # (group, substrings of the kernel names in it), first match wins
     ("K1 attention forward", ("rope_attention_kernel", "rope_attention_mma_kernel")),
-    ("K2 attention backward", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("K2 attention backward", K2_KERNELS),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
     ("optimizer + EMA", ("multi_tensor", "foreach", "adam")),
 ]
@@ -49,6 +54,14 @@ def group_of(name: str) -> str:
         if any(k in low for k in keys):
             return group
     return "other (elementwise, reductions, copies)"
+
+
+def k2_pass(name: str) -> str:
+    """The K2 kernel a device activity of K2's group belongs to."""
+    for key in K2_KERNELS:
+        if key in name:
+            return key
+    raise ValueError(f"{name} is not a K2 kernel")
 
 
 def synthetic_batch(model, batch: int, generator: torch.Generator) -> dict:
@@ -113,12 +126,15 @@ def main(argv=None) -> dict:
 
     by_group = collections.Counter()
     by_kernel = collections.Counter()
+    k2_by_pass = collections.Counter()  # K2's group by kernel: its passes sum to the group
     launches = 0
     for evt in prof.events():  # device activities only: kernels, memsets, copies
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             us = evt.time_range.elapsed_us()
             by_group[group_of(evt.name)] += us
             by_kernel[evt.name] += us
+            if group_of(evt.name) == "K2 attention backward":
+                k2_by_pass[k2_pass(evt.name)] += us
             launches += 1
     device_ms = sum(by_group.values()) / 1e3 / args.steps
     step_ms = wall * 1e3 / args.steps
@@ -138,6 +154,7 @@ def main(argv=None) -> dict:
         "device_idle_share": max(0.0, 1.0 - device_ms / step_ms),
         "device_activities_per_step": launches / args.steps,
         "device_ms_by_group": {g: us / 1e3 / args.steps for g, us in by_group.most_common()},
+        "k2_ms_by_pass": {k: us / 1e3 / args.steps for k, us in k2_by_pass.most_common()},
         "top_kernels_ms": {k[:90]: us / 1e3 / args.steps for k, us in by_kernel.most_common(12)},
         "max_memory_allocated_gib": peak / 2**30,
     }

@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(kThreads)
                           const int* __restrict__ lengths, float* __restrict__ lse, int seq, int heads,
                           int d, float q_mul) {
   // Every region is a multiple of 128 bytes long and each 16-row slab a
-  // multiple of 32 bytes, which keeps every WMMA tile pointer aligned.
+  // multiple of 32 bytes, which keeps every 16-byte vector access aligned.
   using S = Strides<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);  // (64, DP) rotated q * scale * log2(e)

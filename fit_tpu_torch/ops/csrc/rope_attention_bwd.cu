@@ -22,28 +22,40 @@
 // softmax over the valid keys, so their gradient reaches those keys' dk/dv.
 // Keys at or past lengths[b] get dk = dv = 0, written explicitly.
 //
-// Design: three kernels and no atomics, so the result is deterministic.
-//   delta: one thread per (row, head), rowsum(g * out) in fp32.
-//   dk/dv: one block per (key tile of 64, head, batch row); k_r and v stay in
-//          shared memory while a loop walks every 64-row query tile; each warp
-//          owns 16 keys and accumulates their dk and dv in fp32.
-//   dq:    one block per (query tile of 64, head, batch row), looping over the
-//          key tiles below lengths[b]; each warp owns 16 query rows.
-// Both passes recompute the scores from the rotated tiles (the loaders of
-// rope_tiles.cuh, the forward's arithmetic) and use the two per-warp WMMA
-// products of the forward (scores = A B^T, acc += P V), bf16 in and fp32
-// accumulation; fp32 inputs run the same schedule on fp32 FMA dots. Each
-// warp keeps one fp32 score tile: the scores, then p in registers and p (or
-// ds) in the input dtype written over it, then dp over it again.
+// Replaced TPU kernels, by number in PERF.md section 6: #5 _bwd_kernel, #6
+// _qkv_bwd_kernel (the FiT-B/2 training shape), #7 _qkv_chunked_bwd_kernel,
+// #8 _qkv_chunked_dq_kernel and #9 _qkv_chunked_dkv_kernel.
 //
-// Bound at FiT-B/2 training, micro-batch 64 x T 256 x H 12 x d 64 (bf16):
-// it must read qkv, g, out, cos/sin and lse (~135 MB) and write dqkv (75.5
-// MB), ~63 us at 3.35 TB/s, against 5 products of 2*B*H*T^2*d = 32 GFLOP,
-// ~33 us at 989 TFLOP/s: memory-bound at this T. This simple version reads
-// each q/g tile once per key tile and recomputes the scores in both passes,
-// so it moves several times the minimum and runs on mma.sync-class WMMA;
-// TMA, WGMMA and a fused single pass are left for later work.
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at FiT-B/2
+// training, micro-batch 64 x T 256 x H 12 x d 64 (bf16), it must read qkv,
+// g, out, cos/sin and lse (~135 MB) and write dqkv (75.5 MB), ~63 us,
+// against 5 products of 2*B*H*T^2*d = 32 GFLOP, ~33 us: bytes bound it.
+// At XL T 4096 (B 1, H 16, d 72) the 5 products take ~191 us and
+// operations bound it.
+//
+// Design, bf16 (rope_attention_bwd_mma.cuh): three launches and no
+// atomics, so two runs on the same inputs agree bit for bit (a resumed
+// training run repeats its loss stream). A prologue writes delta, the
+// rotated q and k once as bf16 and the head-major lse2 and delta into
+// scratch the wrapper allocates; then a dk/dv pass (a block per 64 keys,
+// looping over every query tile) and a dq pass (a block per 64 queries,
+// looping over the keys below the length), both on mma.sync m16n8k16 with
+// the scores, probabilities and accumulators in registers and the streamed
+// tiles in two-stage cp.async rings. Both passes recompute S and dP, so it
+// does 8 products where 5 would do: fusing the dq pass into the dk/dv pass
+// would need atomics or a (T / 64)-deep fp32 buffer of partial dq.
+//
+// Design, fp32: the schedule that preceded the bf16 kernels, kept as it was
+// to hold K2 against the fp32 reference at 1e-4: delta_kernel, one thread
+// per (row, head); dkdv_kernel, one block per (key tile of 64, head, batch
+// row), k_r and v in shared memory while a loop walks every 64-row query
+// tile, each warp owning 16 keys; dq_kernel, one block per (query tile of
+// 64, head, batch row), looping over the key tiles below lengths[b]. Both
+// recompute the scores from the rotated tiles (the loaders of
+// rope_tiles.cuh), on fp32 FMA dots, with the score tile, then p and ds,
+// and the accumulators in shared memory.
 
+#include "rope_attention_bwd_mma.cuh"
 #include "rope_tiles.cuh"
 
 namespace {
@@ -120,7 +132,7 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ sin_t, const int* __restrict__ lengths,
                 T* __restrict__ dqkv, int seq, int heads, int d, float q_mul, float dk_mul) {
   // Every region is a multiple of 128 bytes long and each 16-row slab a
-  // multiple of 32 bytes, which keeps every WMMA tile pointer aligned.
+  // multiple of 32 bytes, which keeps every 16-byte vector access aligned.
   using S = Strides<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);  // (64, DP) rotated k of this block's keys
@@ -337,82 +349,137 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* qkv, const void* g, const void* out, const float* lse,
-                   float* delta, const float* cos_t, const float* sin_t, const int* lengths,
-                   void* dqkv, int batch, int seq, int heads, int head_dim, float q_mul,
-                   float dq_mul, float dk_mul, cudaStream_t stream) {
-  const T* qkv_t = static_cast<const T*>(qkv);
-  const T* g_t = static_cast<const T*>(g);
-  T* dqkv_t = static_cast<T*>(dqkv);
-  const int64_t n = static_cast<int64_t>(batch) * seq * heads;
-  delta_kernel<T><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      g_t, static_cast<const T*>(out), delta, n, head_dim);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// The arguments of one K2 call. bf16: `rot` holds q_r * q_mul then k_r,
+// each (B, H, T, d) bf16, and `stats` lse2 then delta, each (B, H, T
+// rounded up to 64) fp32. fp32: `stats` is delta (B, T, H) and `rot` is
+// unused. `passes` selects the launches (1: prologue or delta, 2: dk/dv,
+// 4: dq); a call makes all three, one pass alone is for timing it.
+struct Args {
+  const void *qkv, *g, *out;
+  const float* lse;
+  const float *cos_t, *sin_t;
+  const int* lengths;
+  void *dqkv, *rot;
+  float* stats;
+  int batch, seq, heads, head_dim;
+  float q_mul, dq_mul, dk_mul;
+  int passes;
+};
 
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  constexpr size_t dkdv_smem = dkdv_smem_bytes<T, DP>();
-  if ((err = set_smem(dkdv_kernel<T, DP>, dkdv_smem)) != cudaSuccess) return err;
-  dkdv_kernel<T, DP><<<grid, kThreads, dkdv_smem, stream>>>(
-      qkv_t, g_t, lse, delta, cos_t, sin_t, lengths, dqkv_t, seq, heads, head_dim, q_mul, dk_mul);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+template <int DP>
+cudaError_t launch_fp32(const Args& a, cudaStream_t stream) {
+  const float* qkv = static_cast<const float*>(a.qkv);
+  const float* g = static_cast<const float*>(a.g);
+  float* dqkv = static_cast<float*>(a.dqkv);
+  cudaError_t err = cudaSuccess;
+  if (a.passes & 1) {
+    const int64_t n = static_cast<int64_t>(a.batch) * a.seq * a.heads;
+    delta_kernel<float><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        g, static_cast<const float*>(a.out), a.stats, n, a.head_dim);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.heads, a.batch);
+  if (a.passes & 2) {
+    constexpr size_t smem = dkdv_smem_bytes<float, DP>();
+    if ((err = set_smem(dkdv_kernel<float, DP>, smem)) != cudaSuccess) return err;
+    dkdv_kernel<float, DP><<<grid, kThreads, smem, stream>>>(
+        qkv, g, a.lse, a.stats, a.cos_t, a.sin_t, a.lengths, dqkv, a.seq, a.heads, a.head_dim,
+        a.q_mul, a.dk_mul);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (a.passes & 4) {
+    constexpr size_t smem = dq_smem_bytes<float, DP>();
+    if ((err = set_smem(dq_kernel<float, DP>, smem)) != cudaSuccess) return err;
+    dq_kernel<float, DP><<<grid, kThreads, smem, stream>>>(
+        qkv, g, a.lse, a.stats, a.cos_t, a.sin_t, a.lengths, dqkv, a.seq, a.heads, a.head_dim,
+        a.q_mul, a.dq_mul);
+    err = cudaGetLastError();
+  }
+  return err;
+}
 
-  constexpr size_t dq_smem = dq_smem_bytes<T, DP>();
-  if ((err = set_smem(dq_kernel<T, DP>, dq_smem)) != cudaSuccess) return err;
-  dq_kernel<T, DP><<<grid, kThreads, dq_smem, stream>>>(
-      qkv_t, g_t, lse, delta, cos_t, sin_t, lengths, dqkv_t, seq, heads, head_dim, q_mul, dq_mul);
-  return cudaGetLastError();
+template <int DP>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  const bf16* qkv = static_cast<const bf16*>(a.qkv);
+  const bf16* g = static_cast<const bf16*>(a.g);
+  bf16* dqkv = static_cast<bf16*>(a.dqkv);
+  const int seq_pad = (a.seq + kBlockQ - 1) / kBlockQ * kBlockQ;
+  const int64_t n = static_cast<int64_t>(a.batch) * a.seq * a.heads;
+  bf16* q_rot = static_cast<bf16*>(a.rot);
+  bf16* k_rot = q_rot + n * a.head_dim;
+  float* lse_h = a.stats;
+  float* delta_h = lse_h + static_cast<int64_t>(a.batch) * a.heads * seq_pad;
+  cudaError_t err = cudaSuccess;
+  if (a.passes & 1) {
+    const unsigned blocks = static_cast<unsigned>((n + kPrologueRows - 1) / kPrologueRows);
+    bwd_prologue_kernel<<<blocks, kPrologueRows * (a.head_dim / 8), 0, stream>>>(
+        qkv, g, static_cast<const bf16*>(a.out), a.lse, a.cos_t, a.sin_t, q_rot, k_rot, lse_h, delta_h,
+        a.batch, a.seq, seq_pad, a.heads, a.head_dim, a.q_mul);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.heads, a.batch);
+  constexpr size_t smem = bwd_mma_smem_bytes<DP>();
+  if (a.passes & 2) {
+    if ((err = set_smem(bwd_dkdv_mma_kernel<DP>, smem)) != cudaSuccess) return err;
+    bwd_dkdv_mma_kernel<DP><<<grid, kThreads, smem, stream>>>(
+        qkv, g, q_rot, k_rot, lse_h, delta_h, a.cos_t, a.sin_t, a.lengths, dqkv, a.seq, seq_pad,
+        a.heads, a.head_dim, a.dk_mul);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (a.passes & 4) {
+    if ((err = set_smem(bwd_dq_mma_kernel<DP>, smem)) != cudaSuccess) return err;
+    bwd_dq_mma_kernel<DP><<<grid, kThreads, smem, stream>>>(
+        qkv, g, q_rot, k_rot, lse_h, delta_h, a.cos_t, a.sin_t, a.lengths, dqkv, a.seq, seq_pad,
+        a.heads, a.head_dim, a.dq_mul);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 // The compiled head-dim paddings, as in the forward: d pads to the smallest DP >= d.
-template <typename T>
-cudaError_t dispatch(const void* qkv, const void* g, const void* out, const float* lse,
-                     float* delta, const float* cos_t, const float* sin_t, const int* lengths,
-                     void* dqkv, int batch, int seq, int heads, int head_dim, float q_mul,
-                     float dq_mul, float dk_mul, cudaStream_t stream) {
-#define FIT_BWD_LAUNCH(DP)                                                                     \
-  launch<T, DP>(qkv, g, out, lse, delta, cos_t, sin_t, lengths, dqkv, batch, seq, heads, head_dim, \
-                q_mul, dq_mul, dk_mul, stream)
-  if (head_dim <= 16) return FIT_BWD_LAUNCH(16);
-  if (head_dim <= 32) return FIT_BWD_LAUNCH(32);
-  if (head_dim <= 64) return FIT_BWD_LAUNCH(64);
-  if (head_dim <= 80) return FIT_BWD_LAUNCH(80);
-  return FIT_BWD_LAUNCH(128);
-#undef FIT_BWD_LAUNCH
+template <bool BF16>
+cudaError_t dispatch(const Args& a, cudaStream_t stream) {
+  const auto run = [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    if constexpr (BF16) {
+      return launch_bf16<DP>(a, stream);
+    } else {
+      return launch_fp32<DP>(a, stream);
+    }
+  };
+  if (a.head_dim <= 16) return run(std::integral_constant<int, 16>{});
+  if (a.head_dim <= 32) return run(std::integral_constant<int, 32>{});
+  if (a.head_dim <= 64) return run(std::integral_constant<int, 64>{});
+  if (a.head_dim <= 80) return run(std::integral_constant<int, 80>{});
+  return run(std::integral_constant<int, 128>{});
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t: 0 when all three launches were accepted. qkv, g,
-// out and dqkv are in one dtype (is_bf16: bf16, else fp32); lse is the
-// forward's (B, T, H) fp32 log2-sum-exp; delta is (B, T, H) fp32 scratch.
-// q_mul is scale * log2(e), as in the forward. head_dim is a multiple of 8,
-// at most 128.
+// Returns a cudaError_t: 0 when the launches were accepted. qkv, g, out
+// and dqkv are in one dtype (is_bf16: bf16, else fp32); lse is the
+// forward's (B, T, H) fp32 log2-sum-exp. Scratch: with bf16, rot is (2, B,
+// H, T, head_dim) bf16 and stats (2, B, H, T rounded up to 64) fp32; with
+// fp32, rot is unused and stats is (B, T, H) fp32. passes is 7 for a whole
+// call (1, 2, 4: one pass alone, reading what the earlier passes wrote).
+// head_dim is a multiple of 8, at most 128.
 int rope_attention_bwd(const void* qkv, const void* g, const void* out, const void* lse,
-                       void* delta, const void* cos_t, const void* sin_t, const void* lengths,
-                       void* dqkv, int batch, int seq, int heads, int head_dim, float scale,
-                       int is_bf16, void* stream) {
-  if (batch < 1 || seq < 1 || heads < 1 || head_dim < 8 || head_dim % 8 || head_dim > 128) {
+                       const void* cos_t, const void* sin_t, const void* lengths, void* dqkv,
+                       void* rot, void* stats, int batch, int seq, int heads, int head_dim,
+                       float scale, int is_bf16, int passes, void* stream) {
+  if (batch < 1 || seq < 1 || heads < 1 || head_dim < 8 || head_dim % 8 || head_dim > 128 ||
+      passes < 1 || passes > 7 || (is_bf16 && rot == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr float kLog2E = 1.4426950408889634f;
-  const float q_mul = scale * kLog2E;
-  const float dk_mul = 1.f / kLog2E;
+  const Args a{qkv, g, out, static_cast<const float*>(lse), static_cast<const float*>(cos_t),
+               static_cast<const float*>(sin_t), static_cast<const int*>(lengths), dqkv, rot,
+               static_cast<float*>(stats), batch, seq, heads, head_dim, scale * kLog2E, scale,
+               1.f / kLog2E, passes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* lse_f = static_cast<const float*>(lse);
-  float* delta_f = static_cast<float*>(delta);
-  const float* cos_f = static_cast<const float*>(cos_t);
-  const float* sin_f = static_cast<const float*>(sin_t);
-  const int* len_i = static_cast<const int*>(lengths);
-  const cudaError_t err =
-      is_bf16 ? dispatch<bf16>(qkv, g, out, lse_f, delta_f, cos_f, sin_f, len_i, dqkv, batch, seq,
-                               heads, head_dim, q_mul, scale, dk_mul, s)
-              : dispatch<float>(qkv, g, out, lse_f, delta_f, cos_f, sin_f, len_i, dqkv, batch, seq,
-                                heads, head_dim, q_mul, scale, dk_mul, s);
-  return static_cast<int>(err);
+  return static_cast<int>(is_bf16 ? dispatch<true>(a, s) : dispatch<false>(a, s));
 }
 
 const char* rope_attention_bwd_error_string(int err) {

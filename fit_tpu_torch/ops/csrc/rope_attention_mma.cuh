@@ -38,11 +38,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (src is
-// then not read, but must be a valid address).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+// 16 bytes global -> shared, bypassing L1: the first src_bytes (0 to 16)
+// are read and the rest zero-filled (src must be a valid address even when
+// nothing is read).
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
+               "r"(src_bytes));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  cp_async16_n(dst, src, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

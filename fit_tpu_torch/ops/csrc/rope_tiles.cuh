@@ -1,9 +1,9 @@
 // Tile helpers shared by the RoPE-attention forward (rope_attention.cu) and
 // backward (rope_attention_bwd.cu): 16-byte vector moves, the rotated and
 // plain tile loads from a row-strided matrix (the (B, T, 3C) qkv projection,
-// or one head of any (B, T, H, d) view), and the two per-warp
-// WMMA products (scores = A B^T and acc += P V) that both directions are
-// built from.
+// or one head of any (B, T, H, d) view), and the two per-warp FMA products
+// (scores = A B^T and acc += P V) that the fp32 kernels of both directions
+// are built from.
 //
 // A block has 4 warps and works on 64-row tiles; each warp owns 16 rows.
 // Tiles hold a head dim padded to DP (a multiple of 16) in shared memory;
@@ -13,7 +13,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <math.h>
 #include <stdint.h>
@@ -26,7 +25,7 @@ constexpr int kBlockQ = 64;  // query rows per block
 constexpr int kBlockK = 64;  // keys per inner-loop tile (== kBlockQ: tile loaders are shared)
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 16: one WMMA row tile per warp
+constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 16: one mma row tile per warp
 constexpr int kLdS = kBlockK + 4;  // fp32 score row stride, off the 32-bank period
 
 // Shared-memory row strides for a head dim padded to DP: the q/k/v tiles
@@ -158,69 +157,38 @@ __device__ __forceinline__ void load_plain(T* dst, const T* src, int64_t row_str
   }
 }
 
-// sw (16, kBlockK) fp32 = aw (16, DP) @ bs (kBlockK, DP)^T, for one warp.
+// sw (16, kBlockK) fp32 = aw (16, DP) @ bs (kBlockK, DP)^T, for one warp,
+// on FMA dots (fp32 only: bf16 runs on mma.sync, rope_attention_mma.cuh and
+// rope_attention_bwd_mma.cuh).
 template <typename T, int DP>
 __device__ __forceinline__ void warp_scores(float* sw, const T* aw, const T* bs) {
+  static_assert(std::is_same<T, float>::value, "the FMA schedule serves fp32 only");
   constexpr int ld = Strides<T, DP>::kTile;
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int n = 0; n < kBlockK; n += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int k = 0; k < DP; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, aw + k, ld);
-        wmma::load_matrix_sync(bt, bs + n * ld + k, ld);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(sw + n, acc, kLdS, wmma::mem_row_major);
-    }
-  } else {
-    const int lane = threadIdx.x % 32;
-    for (int e = lane; e < kRowsPerWarp * kBlockK; e += 32) {
-      const int r = e / kBlockK;
-      const int j = e % kBlockK;
-      float acc = 0.f;
+  const int lane = threadIdx.x % 32;
+  for (int e = lane; e < kRowsPerWarp * kBlockK; e += 32) {
+    const int r = e / kBlockK;
+    const int j = e % kBlockK;
+    float acc = 0.f;
 #pragma unroll 16
-      for (int c = 0; c < DP; ++c) acc += aw[r * ld + c] * bs[j * ld + c];
-      sw[r * kLdS + j] = acc;
-    }
+    for (int c = 0; c < DP; ++c) acc += aw[r * ld + c] * bs[j * ld + c];
+    sw[r * kLdS + j] = acc;
   }
 }
 
-// ow (16, DP) fp32 += pw (16, kBlockK) @ vs (kBlockK, DP), for one warp.
+// ow (16, DP) fp32 += pw (16, kBlockK) @ vs (kBlockK, DP), for one warp, on
+// FMA dots (fp32 only).
 template <typename T, int DP>
 __device__ __forceinline__ void warp_accumulate_pv(float* ow, const T* pw, const T* vs) {
+  static_assert(std::is_same<T, float>::value, "the FMA schedule serves fp32 only");
   using S = Strides<T, DP>;
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int n = 0; n < DP; n += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, ow + n, S::kOut, wmma::mem_row_major);
-#pragma unroll
-      for (int k = 0; k < kBlockK; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, pw + k, S::kP);
-        wmma::load_matrix_sync(bv, vs + k * S::kTile + n, S::kTile);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(ow + n, acc, S::kOut, wmma::mem_row_major);
-    }
-  } else {
-    const int lane = threadIdx.x % 32;
-    for (int e = lane; e < kRowsPerWarp * DP; e += 32) {
-      const int r = e / DP;
-      const int c = e % DP;
-      float acc = ow[r * S::kOut + c];
+  const int lane = threadIdx.x % 32;
+  for (int e = lane; e < kRowsPerWarp * DP; e += 32) {
+    const int r = e / DP;
+    const int c = e % DP;
+    float acc = ow[r * S::kOut + c];
 #pragma unroll 16
-      for (int j = 0; j < kBlockK; ++j) acc += pw[r * S::kP + j] * vs[j * S::kTile + c];
-      ow[r * S::kOut + c] = acc;
-    }
+    for (int j = 0; j < kBlockK; ++j) acc += pw[r * S::kP + j] * vs[j * S::kTile + c];
+    ow[r * S::kOut + c] = acc;
   }
 }
 

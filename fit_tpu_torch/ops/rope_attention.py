@@ -21,7 +21,9 @@ Two kernels:
   (``flash_launches``) and ``fit_tpu_torch.ops.attention.masked_attention``
   (RoPE off; its module's ``launches``).
 * K2, :func:`rope_attention_bwd` -> ``csrc/rope_attention_bwd.cu``: dqkv
-  (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T.
+  (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T (bf16: a prologue into
+  scratch the wrapper allocates, then dk/dv and dq passes on ``mma.sync``,
+  ``csrc/rope_attention_bwd_mma.cuh``; fp32 on FMA dots).
 
 :func:`qkv_rope_attention` is a ``torch.autograd.Function`` over the pair
 when a gradient is wanted (K1 with lse, then K2), and K1 alone without lse
@@ -359,32 +361,56 @@ def rope_attention_bwd(
     """K2's wrapper: dqkv (B, T, 3C) in qkv's dtype. ``g`` is made
     contiguous and cast to qkv's dtype first. On a CPU tensor, or with
     ``plain``, the plain version; on a CUDA tensor the kernel (three
-    launches: delta, dk/dv, dq; counted as one call)."""
+    launches: a prologue, or delta in fp32, then dk/dv, then dq; counted as
+    one call)."""
     global bwd_launches
     if plain or qkv.device.type == "cpu":
         return rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lengths, scale, num_heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"no rope attention kernel for device {qkv.device}")
     qkv = _flat_qkv(qkv)
-    d = _check_cuda_args(qkv, cos, sin, lengths, num_heads, check_lengths=False)
+    _check_cuda_args(qkv, cos, sin, lengths, num_heads, check_lengths=False)
     g = g.to(qkv.dtype).contiguous()
     _check_bwd_args(qkv, g, out, lse, num_heads)
-    b, t, w = qkv.shape
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty((b, t, num_heads), dtype=torch.float32, device=qkv.device)
+    _k2_launch(qkv, g, out, lse, cos, sin, lengths, scale, num_heads, dqkv, *_k2_scratch(qkv, num_heads))
+    bwd_launches += 1
+    return dqkv
+
+
+def _k2_scratch(qkv: torch.Tensor, num_heads: int) -> "tuple[torch.Tensor | None, torch.Tensor]":
+    """K2's scratch for a (B, T, 3C) projection: in bf16, ``rot`` (2, B, H,
+    T, d) bf16 (the rotated q * scale * log2(e), then the rotated k) and
+    ``stats`` (2, B, H, T rounded up to 64) fp32 (lse2, then delta, head
+    by head); in fp32, no ``rot`` and ``stats`` the (B, T, H) delta."""
+    b, t, w = qkv.shape
+    d = w // 3 // num_heads
+    if qkv.dtype != torch.bfloat16:
+        return None, torch.empty((b, t, num_heads), dtype=torch.float32, device=qkv.device)
+    t_pad = -(-t // 64) * 64
+    rot = torch.empty((2, b, num_heads, t, d), dtype=torch.bfloat16, device=qkv.device)
+    stats = torch.empty((2, b, num_heads, t_pad), dtype=torch.float32, device=qkv.device)
+    return rot, stats
+
+
+def _k2_launch(qkv, g, out, lse, cos, sin, lengths, scale, num_heads, dqkv, rot, stats, passes=7) -> None:
+    """Launches K2 on operands the caller has checked, writing ``dqkv`` and
+    the scratch of :func:`_k2_scratch`. ``passes`` picks the launches (1:
+    prologue or delta, 2: dk/dv, 4: dq; 7 all), so that one pass can be
+    timed alone after a whole call has filled the scratch. Raises if a
+    launch fails; counts nothing."""
+    b, t, w = qkv.shape
     lib = _lib("rope_attention_bwd")
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.rope_attention_bwd(
-            qkv.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), lengths.data_ptr(), dqkv.data_ptr(),
-            b, t, num_heads, d, scale, int(qkv.dtype == torch.bfloat16), stream,
+            qkv.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            lengths.data_ptr(), dqkv.data_ptr(), None if rot is None else rot.data_ptr(), stats.data_ptr(),
+            b, t, num_heads, w // 3 // num_heads, scale, int(qkv.dtype == torch.bfloat16), passes, stream,
         )
     if err != 0:
         msg = lib.rope_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"rope_attention_bwd launch failed: {msg} (cudaError {err})")
-    bwd_launches += 1
-    return dqkv
 
 
 class _RopeAttention(torch.autograd.Function):
@@ -490,8 +516,9 @@ _ENTRIES = {
     # q, k, v, out, their (batch, token, head) strides, cos, sin, lengths, lse,
     # batch, seq, heads, head_dim, q_mul, is_bf16, stream
     "rope_attention": ("rope_attention_fwd", "pppp" + "l" * 12 + "pppp" "iiii" "fip"),
-    # qkv, g, out, lse, delta, cos, sin, lengths, dqkv, batch, seq, heads, head_dim, scale, is_bf16, stream
-    "rope_attention_bwd": ("rope_attention_bwd", "ppppppppp" "iiii" "fip"),
+    # qkv, g, out, lse, cos, sin, lengths, dqkv, rot, stats, batch, seq, heads, head_dim, scale,
+    # is_bf16, passes, stream
+    "rope_attention_bwd": ("rope_attention_bwd", "pppppppppp" "iiii" "fiip"),
 }
 
 

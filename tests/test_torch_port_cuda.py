@@ -17,7 +17,10 @@ Tolerances, against the plain versions on the same inputs:
 - K1's lse and the backward K2 (dq, dk, dv each, every row): max abs
   error over max(1, max |plain|) within 1e-4 in fp32, over max |plain|
   within 3e-2 in bf16 (bf16 rounding of the rotated q/k, of p, of ds and of
-  the stored gradient); keys at or past a row's length get exactly 0;
+  the stored gradient); keys at or past a row's length get exactly 0; the
+  bf16 K2 over every compiled padding and T from 1 to 4096 (at T 1, where
+  dq and dk are 0 but for rounding, against max |plain dv|), and two K2
+  calls bit for bit equal;
 - the row kernels with int8 epilogue: codes within one step, on at most
   1e-3 of them plus one (a LayerNorm sum taken in another order can move a
   value across a rounding boundary), row scales within 1e-6 relative;
@@ -356,6 +359,7 @@ def test_bf16_k1_launches_repeat_bit_for_bit(cuda_device, layout, rope):
     [
         (12, 64, 256, (256, 200, 130, 64, 1, 255, 129, 33)),  # FiT-B/2 training
         (16, 72, 4096, (4000,)),  # XL at 1024^2: the last key tile holds 32 keys
+        (16, 72, 2304, (2304, 1500)),  # XL at 768^2
         (2, 128, 96, (96, 1)),
     ],
 )
@@ -373,6 +377,75 @@ def test_k2_from_the_bf16_k1_lse_matches_autograd(cuda_device, h, d, t, lengths)
     for i in range(3):
         part, ref = got[..., i * c : (i + 1) * c], want[..., i * c : (i + 1) * c]
         assert (part - ref).abs().max().item() <= GRAD_REL[torch.bfloat16] * ref.abs().max().item(), f"d{'qkv'[i]}"
+
+
+# The bf16 K2 (the prologue and the two mma.sync passes) over its range:
+# every compiled padding (d = 72 pads to 80) and T from 1 to 4096, each batch
+# holding a full row, one whose last key tile is partial and a one-key row.
+K2_T_LENGTHS = [
+    (1, (1, 1)),
+    (32, (32, 17, 1)),
+    (96, (96, 50, 1)),
+    (256, (256, 131, 1)),
+    (1024, (1024, 700, 1)),
+    (2304, (2304, 1500, 1)),
+    (4096, (4096, 4000, 1)),
+]
+
+
+def k2_case(h, d, t, lengths, device, seed):
+    """bf16 inputs of K2 with K1's out and lse, and the plain version's dqkv."""
+    qkv, cos, sin, lens = make_inputs(seed, h, d, t, lengths, device, torch.bfloat16)
+    gen = torch.Generator(device).manual_seed(seed)
+    g = torch.randn((len(lengths), t, h * d), generator=gen, device=device).to(torch.bfloat16)
+    out, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
+    want = ra.rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lens, d**-0.5, h).float()
+    return (qkv, g, out, lse, cos, sin, lens, d**-0.5, h), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,lengths", K2_T_LENGTHS, ids=[f"T{t}" for t, _ in K2_T_LENGTHS])
+@pytest.mark.parametrize("d", [16, 32, 64, 72, 128])
+def test_bf16_k2_matches_plain_version(cuda_device, d, t, lengths):
+    """dq, dk and dv each within 3e-2 of max |plain|; at T 1 every row has
+    one key, so the exact dq and dk are 0 (a softmax over one key has no
+    gradient in its score) and rounding is all there is: they are held to
+    3e-2 of max |plain dv|, the gradient's scale. Keys at or past a row's
+    length get exactly 0, though the output comes from torch.empty over
+    memory just filled with NaN."""
+    h = 2 if t >= 1024 else 4
+    args, want = k2_case(h, d, t, lengths, cuda_device, seed=d + t)
+    torch.full_like(args[0], float("nan"))  # freed at once: the caching allocator gives K2's output this block
+    ra.reset_launches()
+    got = ra.rope_attention_bwd(*args).float()
+    torch.cuda.synchronize()
+    assert ra.bwd_launches == 1 and torch.isfinite(got).all()
+    c = h * d
+    dv_scale = want[..., 2 * c :].abs().max().item()
+    for i in range(3):
+        part, ref = got[..., i * c : (i + 1) * c], want[..., i * c : (i + 1) * c]
+        denom = dv_scale if t == 1 and i < 2 else ref.abs().max().item()
+        assert (part - ref).abs().max().item() <= 3e-2 * denom, f"d{'qkv'[i]}"
+    for i, n in enumerate(lengths):
+        assert not got[i, n:, c:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "h,d,t,lengths",
+    [
+        (12, 64, 256, (256, 200, 130, 64, 1, 255, 129, 33) * 8),  # the FiT-B/2 micro-batch
+        (16, 72, 1024, (1024, 700, 1, 1000)),  # XL at 512^2
+    ],
+    ids=["B2-T256", "XL-T1024"],
+)
+def test_bf16_k2_launches_repeat_bit_for_bit(cuda_device, h, d, t, lengths):
+    """No atomics: two K2 calls on the same inputs write the same bits."""
+    args, _ = k2_case(h, d, t, lengths, cuda_device, seed=13)
+    first = ra.rope_attention_bwd(*args)
+    second = ra.rope_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:

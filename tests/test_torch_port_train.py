@@ -598,3 +598,34 @@ def test_trainer_validation_bucket_packing_and_cli(tmp_path, tiny_models):
             "--log-every", "1", "--num-workers", "1",
         ]).result(timeout=WAIT_S)
     assert state.step == 2 and len(logged(tmp_path / "cli")) == 2
+
+
+@pytest.mark.parametrize(
+    "sources,group",
+    [
+        (("rope_attention.cu", "rope_attention_mma.cuh"), "K1 attention forward"),
+        (("rope_attention_bwd.cu", "rope_attention_bwd_mma.cuh"), "K2 attention backward"),
+    ],
+    ids=["K1", "K2"],
+)
+def test_profile_train_groups_every_attention_kernel(sources, group):
+    """Every __global__ kernel of the attention sources falls in its own
+    group of profile_train (none in the elementwise rest), and K2's
+    kernels each name one of its passes, so K2's group is their sum."""
+    import re
+    from pathlib import Path
+
+    from fit_tpu_torch.cli import profile_train
+
+    csrc = Path(profile_train.__file__).resolve().parents[1] / "ops" / "csrc"
+    names = [
+        name
+        for src in sources
+        for name in re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(", (csrc / src).read_text())
+    ]
+    assert names
+    for name in names:
+        device_name = f"void (anonymous namespace)::{name}<64>(int, float)"
+        assert profile_train.group_of(device_name) == group, name
+        if group.startswith("K2"):
+            assert profile_train.k2_pass(device_name) in name
