@@ -10,21 +10,26 @@ Phases, each printing its lines; any failure raises (non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compiles the CUDA kernels from the sources in the checkout, one
      nvcc per source, all at once, and prints ptxas's registers and spill
-     bytes of each bf16 K1 (mma.sync) instantiation and of each bf16 K2
-     pass (dk/dv, dq); one that spills at DP 64 or 80, or a missing
-     instantiation, fails the run;
+     bytes of each bf16 K1 (mma.sync) instantiation, of each bf16 K2
+     pass (dk/dv, dq) and of each instantiation of K3's warp-per-row
+     kernel (adaln_warp_rows, every width to 1152); a K1 or K2 one that
+     spills at DP 64 or 80, a K3 one that spills, or a missing
+     instantiation fails the run;
   3. kernel vs plain: the RoPE + masked attention kernel against its plain
      PyTorch version at the shapes of the main path, with the time of both;
   3b. the row kernels (adaLN and SwiGLU glue, with and without the int8
      epilogue) against their plain versions at FiT-XL/2 serving shapes,
-     with the time of both, and the int8 GEMM (torch._int_mm) beside bf16;
+     with the time of both, the bound and the kernel's share of it (and
+     K3's predecessor's time), and the int8 GEMM
+     (torch._int_mm) beside bf16;
   4. sampling: FiT-XL/2 with seeded random weights, 256x256 DDIM + CFG
      ``FiTSampler.sample`` at batch 8 and ``sample_mixed`` over four aspect
      ratios, checking the outputs, the kernel's launch count and one guided
      forward against the same forward with the plain kernels;
   5. int8 serving: the same weights through ``quantize_model``; one guided
-     int8 forward against the plain kernels and against the bf16 model;
-     then ``SamplingServer`` behind its HTTP handler on 127.0.0.1 answers
+     int8 forward against the plain kernels and against the bf16 model,
+     and one under ``torch.profiler`` (device time by group, and K3's
+     total over its 56 launches); then ``SamplingServer`` behind its HTTP handler on 127.0.0.1 answers
      seeded requests of mixed sizes, checking every response, the
      determinism of a repeated seed, the server's stats and every kernel's
      launch count;
@@ -96,8 +101,7 @@ INPUT_PERTURBATION = 1e-6
 SERVE_STEPS = 10
 SERVE_BATCH = 8
 SEED_REPEAT_ATOL = 1e-3  # bound on a repeated seed's drift, should the bits differ
-ROW_SHAPES = [(16, 256), (64, 256), (5, 251)]  # batch 8 and 32 with CFG, and a ragged row count
-XL_HIDDEN, XL_MLP = 1152, 3072
+XL_HIDDEN = 1152
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -191,6 +195,10 @@ K1_EARLIER_US = {
     "FiT-B/2 B64 T256 H12 d64 RoPE + lse": 209.4,
 }
 NO_SPILL_DPS = (64, 80)  # the main paths' paddings: their bf16 K1 and K2 must not spill
+# K3 at the row kernels' shapes (rows (B, T) of width 1152), with its
+# predecessor's device us there (one block of 128 threads per row, timed
+# by this script on an H100 80GB HBM3 at 700 W; PERF.md section 6).
+K3_EARLIER_US = {(16, 256): 12.8, (64, 256): 47.6, (5, 251): 6.4}
 # The bf16 K2 at the GRAD_SHAPES cases it was timed at before its mma.sync
 # passes, with its predecessor's device us there (the WMMA kernels with
 # scores and accumulators in shared memory, timed by this script on an H100
@@ -231,14 +239,21 @@ def k2_mma_ptxas(log_text: str) -> "dict[tuple[str, int], dict]":
     return {(name, int(dp)): info for (name, dp), info in found.items()}
 
 
-def check_no_spill(what: str, found: dict, dp_of, expected: int) -> None:
+def warp_rows_ptxas(log_text: str) -> "dict[tuple[str, int], dict]":
+    """K3's warp-per-row instantiations, by (dtype, quads per lane)."""
+    found = ptxas_by_kernel(log_text, r"adaln_warp_rowsI(13__nv_bfloat16|f)Li(\d+)E")
+    return {("bf16" if t == "13__nv_bfloat16" else "fp32", int(c)): info for (t, c), info in found.items()}
+
+
+def check_no_spill(what: str, found: dict, guarded, expected: int) -> None:
     """Prints each instantiation's registers and spills; fails on a spill
-    at a main-path padding (NO_SPILL_DPS) or a missing instantiation."""
+    in an instantiation for which ``guarded(key)`` holds (the main paths'
+    shapes) or a missing instantiation."""
     for key, info in sorted(found.items()):
         print(f"build: {what} {key}: {info.get('registers')} registers, spill stores {info.get('spill_stores')} B, "
               f"spill loads {info.get('spill_loads')} B", flush=True)
     spilled = [k for k, info in found.items()
-               if dp_of(k) in NO_SPILL_DPS and (info.get("spill_stores"), info.get("spill_loads")) != (0, 0)]
+               if guarded(k) and (info.get("spill_stores"), info.get("spill_loads")) != (0, 0)]
     if len(found) != expected or spilled:
         raise AssertionError(f"{what}: {len(found)} of {expected} instantiations in the ptxas log; spills at {spilled}")
 
@@ -597,16 +612,6 @@ def block_rel_rms(model, ra, inputs, gen):
     return rel_rms(got.float(), want.float()), rel_rms(moved.float(), want.float())
 
 
-def bf16_ulps(got, want) -> float:
-    """Largest |got - want| in bf16 ulps of want, a value under 2^-8 in
-    magnitude judged at the ulp of 2^-8: where shift + n * (1 + scale)
-    cancels to near zero, fp32 sums taken in another order differ by ~1e-7,
-    which is many ulps of the tiny result but no error of the kernel."""
-    want = want.float()
-    exp = torch.floor(torch.log2(want.abs().clamp_min(2.0**-8)))
-    return ((got.float() - want).abs() / torch.exp2(exp - 7)).max().item()
-
-
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of ``fn()`` in ms, without the host's launch overhead:
     the launches of ``iters`` calls queue up behind a spin kernel, so the
@@ -623,65 +628,78 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def row_kernel_cases(quant, fused_adaln):
+def row_kernel_cases():
     """Phase 3b: each row kernel against its plain version, bf16, at the
-    XL serving shapes. Returns {name: (max_abs_err, kernel ms, plain ms,
-    bound ms, bound by)} with the device times and the bound at batch 8 +
-    CFG (4,096 rows)."""
-    variants = {
-        "adaln_quant": (XL_HIDDEN, True, quant.adaln_quant),
-        "adaln_modulate": (XL_HIDDEN, False, fused_adaln.adaln_modulate),
-        "silu_mul_quant": (XL_MLP, True, quant.silu_mul_quant),
-        "swiglu_glue": (XL_MLP, False, fused_adaln.swiglu_glue),
-    }
+    XL serving shapes, with its device time, its share of its bound and, for
+    K3, its predecessor's time. Returns {name: (max_abs_err, kernel
+    ms, plain ms, bound ms, bound by)} with the device times and the bound
+    at batch 8 + CFG (4,096 rows)."""
+    from fit_tpu_torch.cli.row_kernels_ab import ROW_SHAPES, VARIANTS, check, row_bytes, row_inputs
+
     results = {}
-    for name, (width, with_quant, fn) in variants.items():
+    for name, (width, _, fn) in VARIANTS.items():
         errs = []
         for b, t in ROW_SHAPES:
-            gen = torch.Generator(device="cuda").manual_seed(b * t)
-            x = (torch.randn((b, t, width), generator=gen, device="cuda") * 3 + 1).to(torch.bfloat16)
-            if name.startswith("adaln"):
-                mod = torch.randn((b, 6 * width), generator=gen, device="cuda").to(torch.bfloat16)
-                args = (x, mod[:, :width], mod[:, width : 2 * width])
-            else:
-                args = (x, torch.randn((b, t, width), generator=gen, device="cuda").to(torch.bfloat16))
+            args = row_inputs(name, b, t)
             got, want = fn(*args), fn(*args, plain=True)
             torch.cuda.synchronize()
-            if with_quant:
-                (q, s), (q_ref, s_ref) = got, want
-                dq = (q.int() - q_ref.int()).abs()
-                n_diff = int((dq > 0).sum().item())
-                s_rel = ((s - s_ref).abs() / s_ref).max().item()
-                err = (q.float() * s - q_ref.float() * s_ref).abs().max().item()
-                detail = f"max|dq|={int(dq.max().item())} codes differing={n_diff}/{dq.numel()} scale_rel={s_rel:.2e}"
-                ok = dq.max().item() <= 1 and n_diff <= 1e-3 * dq.numel() and s_rel <= 1e-6
-            else:
-                ulps = bf16_ulps(got, want)
-                err = (got.float() - want.float()).abs().max().item()
-                detail = f"max_ulps={ulps:.3f}"
-                ok = ulps <= 1
+            ok, err, detail = check(name, got, want)
             ms, plain_ms = device_ms(lambda: fn(*args)), device_ms(lambda: fn(*args, plain=True))
             wall_ms, plain_wall_ms = time_ms(lambda: fn(*args)), time_ms(lambda: fn(*args, plain=True))
+            bound, bound_by = bound_ms(row_bytes(name, b, t), 0, torch.bfloat16)
+            earlier = K3_EARLIER_US[(b, t)] if name == "adaln_quant" else None
             print(
                 f"row kernel vs plain: {name} rows={b * t} width={width} bf16 {detail} "
                 f"max_abs_err={err:.3e} kernel_us={ms * 1e3:.1f} plain_us={plain_ms * 1e3:.1f} (device); "
-                f"back to back, host-paced: kernel {wall_ms * 1e3:.1f} plain {plain_wall_ms * 1e3:.1f}",
+                f"bound_us={bound * 1e3:.2f} by {bound_by}, {bound / ms:.0%} of it"
+                + (f"; before it {earlier} ({earlier / (ms * 1e3):.2f}x faster)" if earlier else "")
+                + f"; back to back, host-paced: kernel {wall_ms * 1e3:.1f} plain {plain_wall_ms * 1e3:.1f}",
                 flush=True,
             )
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version at {(b, t, width)}: {detail}")
             errs.append(err)
             if (b, t) == ROW_SHAPES[0]:
-                # bytes: each bf16 input read once (shift and scale once per
-                # batch row), the output written once (int8 codes and an fp32
-                # scale per row, or bf16); the arithmetic is far below the ridge
-                rows = b * t
-                reads = rows * width * 2 * (1 if name.startswith("adaln") else 2)
-                reads += 2 * b * width * 2 if name.startswith("adaln") else 0
-                writes = rows * width + rows * 4 if with_quant else rows * width * 2
-                results[name] = (ms, plain_ms, *bound_ms(reads + writes, 0, torch.bfloat16))
+                results[name] = (ms, plain_ms, bound, bound_by)
         results[name] = (max(errs), *results[name])
     return results
+
+
+def int8_forward_profile(qmodel, inputs, quant, smi) -> None:
+    """Phase 5: one guided int8 FiT-XL/2 forward (16 rows x T 256) under
+    torch.profiler: device time by group, and K3's total over its launches
+    (two per block), each checked against the wrapper's count."""
+    from fit_tpu_torch.cli.profile_train import group_of
+
+    guided_forward(qmodel, inputs)
+    torch.cuda.synchronize()
+    quant.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        guided_forward(qmodel, inputs)
+        torch.cuda.synchronize()
+    launches = dict(quant.launches)
+    by_group, k3_us, n_dev = {}, [], 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = evt.time_range.elapsed_us()
+            group = group_of(evt.name)
+            by_group[group] = by_group.get(group, 0.0) + us / 1e3
+            n_dev += 1
+            if "adaln_warp_rows" in evt.name or "adaln_block_rows" in evt.name:
+                k3_us.append(us)
+    dev_ms = sum(by_group.values())
+    print(
+        f"int8 forward profiled: FiT-XL/2 guided, 16 rows x T 256, bf16 + int8: device {dev_ms:.2f} ms in "
+        f"{n_dev} activities; K3 (adaln_quant) {sum(k3_us) / 1e3:.4f} ms "
+        f"over {len(k3_us)} launches, {sum(k3_us) / max(1, len(k3_us)):.2f} us each; "
+        + ", ".join(f"{g} {v:.3f} ms" for g, v in sorted(by_group.items(), key=lambda kv: -kv[1]))
+        + f"; {smi}",
+        flush=True,
+    )
+    want = {"adaln_quant": 2 * DEPTH, "silu_mul_quant": DEPTH}
+    if launches != want or len(k3_us) != 2 * DEPTH:
+        raise AssertionError(f"profiled int8 forward: launches {launches}, K3 activities {len(k3_us)}; expected {want}")
 
 
 def int8_gemm_line(quant) -> None:
@@ -1053,8 +1071,13 @@ def main() -> None:
         print(f"build: {name}.cu; ptxas: {ptxas}", flush=True)
     print(f"build: {len(sources)} sources in {build_s:.2f} s", flush=True)
     logs = {name: "".join(log.read_text() for log in _build.BUILD_DIR.glob(f"{name}_*.log")) for name in sources}
-    check_no_spill("bf16 K1 (mma.sync) (DP, RoPE)", mma_ptxas(logs["rope_attention"]), lambda k: k[0], 10)
-    check_no_spill("bf16 K2 (mma.sync) (pass, DP)", k2_mma_ptxas(logs["rope_attention_bwd"]), lambda k: k[1], 10)
+    check_no_spill("bf16 K1 (mma.sync) (DP, RoPE)", mma_ptxas(logs["rope_attention"]),
+                   lambda k: k[0] in NO_SPILL_DPS, 10)
+    check_no_spill("bf16 K2 (mma.sync) (pass, DP)", k2_mma_ptxas(logs["rope_attention_bwd"]),
+                   lambda k: k[1] in NO_SPILL_DPS, 10)
+    # every width of K3's warp path (to 1152, so every FiT and DiT width) must not spill
+    check_no_spill("K3 adaln_warp_rows (dtype, quads per lane)", warp_rows_ptxas(logs["row_quant"]),
+                   lambda k: True, 18)
 
     # 3. kernel vs plain, at the main path's shapes (XL: H=16, d=72; L: d=64)
     padded16 = PADDED16
@@ -1072,7 +1095,7 @@ def main() -> None:
                 fwd_main = res[3]
 
     # 3b. the row kernels and the int8 GEMM at XL serving shapes
-    rows = row_kernel_cases(quant, fused_adaln)
+    rows = row_kernel_cases()
     int8_gemm_line(quant)
 
     # 4. sampling: FiT-XL/2, seeded random weights, DDIM + CFG at 256^2
@@ -1149,6 +1172,7 @@ def main() -> None:
     )
     if not (rel_block <= INT8_BLOCK_REL_RMS and max(*rel_fp32, rel_bf16) <= FORWARD_REL_RMS):
         raise AssertionError("the int8 forward through the kernels disagrees with the plain one")
+    int8_forward_profile(qmodel, inputs, quant, smi)
     del model, sampler, q32
 
     # the int8 sampler alone at batch 8, beside phase 4's bf16 step

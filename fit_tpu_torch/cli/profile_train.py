@@ -45,6 +45,8 @@ GROUPS = [  # (group, substrings of the kernel names in it), first match wins
     ("K2 attention backward", K2_KERNELS),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
     ("optimizer + EMA", ("multi_tensor", "foreach", "adam")),
+    ("adaLN rows (K3 int8, K5)", ("adaln_warp_rows", "adaln_block_rows")),
+    ("SwiGLU rows (K4 int8, K6)", ("silu_mul_rows",)),
 ]
 
 

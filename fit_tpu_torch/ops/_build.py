@@ -50,13 +50,14 @@ def nvcc_path() -> str:
     )
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is not built yet, and load it."""
-    if name in _loaded:
-        return _loaded[name]
-    src = CSRC / f"{name}.cu"
+def load(name: str, src_dir: Path = CSRC) -> ctypes.CDLL:
+    """Compile ``<src_dir>/<name>.cu`` (``csrc/`` unless another tree's is
+    given) if its library is not built yet, and load it."""
+    src = Path(src_dir) / f"{name}.cu"
+    if str(src) in _loaded:
+        return _loaded[str(src)]
     # the shared headers count too: an edited header builds every source anew
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{name}_{digest}.so"
     if not lib_path.exists():
@@ -76,5 +77,5 @@ def load(name: str) -> ctypes.CDLL:
         (BUILD_DIR / f"{name}_{digest}.log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    _loaded[name] = lib
+    _loaded[str(src)] = lib
     return lib

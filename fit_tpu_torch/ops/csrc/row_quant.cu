@@ -3,46 +3,72 @@
 // optional per-row symmetric int8 quantization of its result.
 //
 // Replaces four TPU kernels:
-//   fit_tpu/ops/quant.py::_adaln_quant_kernel      -> adaln_rows<T, true>
-//   fit_tpu/ops/fused_adaln.py::_adaln_kernel      -> adaln_rows<T, false>
-//   fit_tpu/ops/quant.py::_silu_mul_quant_kernel   -> silu_mul_rows<T, true>
-//   fit_tpu/ops/fused_adaln.py::_swiglu_kernel     -> silu_mul_rows<T, false>
+//   fit_tpu/ops/quant.py::_adaln_quant_kernel    -> adaln_warp_rows<T, C> (K3;
+//                                                   adaln_block_rows<T, true, C> past 1152)
+//   fit_tpu/ops/fused_adaln.py::_adaln_kernel    -> adaln_block_rows<T, false, C> (K5)
+//   fit_tpu/ops/quant.py::_silu_mul_quant_kernel -> silu_mul_rows<T, true, C> (K4)
+//   fit_tpu/ops/fused_adaln.py::_swiglu_kernel   -> silu_mul_rows<T, false, C> (K6)
 //
-// adaln_rows, for one token row x of width D and its batch row b:
+// adaLN, for one token row x of width D and its batch row b:
 //   mean = sum(x) / D,  var = sum((x - mean)^2) / D       (fp32, two passes)
 //   h    = (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
 // silu_mul_rows, for one row of width H:  h = g / (1 + exp(-g)) * v  (fp32)
 // Without QUANT, h is stored in the input dtype. With QUANT:
 //   s = max(max|h|, 1e-12) * (1/127),  q = clamp(rint(h / s), -127, 127)
 // and q (int8) and s (fp32, one per row) are stored: the (q, s) pair that
-// feeds the int8 GEMM. rintf rounds half to even, like jnp.round and
-// torch.round; the divide is IEEE (__fdiv_rn) and the epilogue's multiplies
-// and adds are rounded one by one (__fmul_rn, __fadd_rn, no FMA
-// contraction), so the codes agree with fit_tpu's except where a sum taken
-// in another order moves h across a rounding boundary (one code).
+// feeds the int8 GEMM. rint rounds half to even, like jnp.round and
+// torch.round; the divide is IEEE, the quotient __fdiv_rn returns (div_rn
+// below), and the epilogue's multiplies and adds are rounded one by one
+// (__fmul_rn, __fadd_rn, no FMA contraction), so the codes agree with
+// fit_tpu's except where a sum taken in another order moves h across a
+// rounding boundary (one code).
 //
 // Bound: device memory. Each row is read once and written once; there is
-// no reuse to exploit and ~20 FLOP per element. At FiT-XL/2 with batch 8
-// and CFG (4,096 rows) the least traffic is ~14 MB for adaln_rows<true>
-// (1152 x (2 B in + 1 B out) per row), ~4 us at 3.35 TB/s, and ~63 MB for
-// silu_mul_rows<true> (3072 x (2 + 2 + 1) B per row), ~19 us. The design
-// therefore moves the minimum: one read of the inputs in 16-byte vectors,
-// the row held in registers between the passes (the statistics, the absmax
-// and the store reuse it), and one write of int8. The bf16 intermediate
-// that the unfused path writes and reads back never reaches device memory.
+// no reuse to exploit. At FiT-XL/2 with batch 8 and CFG (4,096 rows) the
+// least traffic is ~14 MB for adaLN with QUANT (1152 x (2 B in + 1 B out)
+// per row), ~4.3 us at 3.35 TB/s, and ~63 MB for silu_mul_rows<true> (3072 x
+// (2 + 2 + 1) B per row), ~19 us. So each kernel moves the minimum: one
+// read of the inputs, the row held in registers between the passes (the
+// statistics, the absmax and the store reuse it), and one write of int8;
+// the bf16 intermediate that the unfused path writes and reads back never
+// reaches device memory. The int8 epilogue costs ~20 instructions a value,
+// which at 4,096 rows is about as long as the memory bound, so it is kept
+// short: a code comes from one add (code_bits) instead of rintf and a
+// float-to-int conversion, and the quotient from a multiply and four fmas
+// by a reciprocal taken once per row (div_rn) instead of a reciprocal and
+// a range check per value.
 //
-// Layout. One block of 128 threads per row. A row is cut into chunks of 8
-// elements (one 16-byte bf16 vector, two fp32 vectors); thread i owns chunks
-// i, i + 128, ..., at most C of them (C a compile-time 1, 2, 4 or 8, so
-// widths up to 8192). D and H must be multiples of 8 and every pointer
-// 16-byte aligned; shift and scale are (B, D) with a row stride that is a
-// multiple of 8 elements (the chunks of a (B, 6D) adaLN output). The
-// reductions go through warp shuffles and one shared-memory slot per warp,
-// in a fixed order, so a row's result does not depend on the other rows.
+// D and H must be multiples of 8 and every pointer 16-byte aligned; shift
+// and scale are (B, D) with a row stride that is a multiple of 8 elements
+// (the chunks of a (B, 6D) adaLN output). Each reduction runs in a fixed
+// order, so two launches give the same bits and a row's result does not
+// depend on the other rows or on how rows are spread over blocks.
+//
+// adaln_warp_rows (K3 for D <= 1152, every FiT and DiT width): a warp per
+// row, no block barrier. Lane l owns the quads (4 elements: 8 bytes of
+// bf16) l, l + 32, ..., C (<= 9) of them, so the row stays in registers;
+// the sum and the sum of squares are shuffle trees inside the warp and the
+// absmax one warp-wide integer max. 4-element quads cover the registry
+// widths in whole columns of the warp (D = 1152 is 9 quads a lane), where
+// 8-element chunks left half the lanes idle in the last column. A block of
+// kRowWarps warps covers kRowWarps * rows_per_warp consecutive rows of one
+// batch row (the Pallas grid (b, cdiv(T, rows))), and each warp walks
+// rows_per_warp rows: its shift and scale arrive once, by cp.async beside
+// its first row, into shared-memory slots that only its own lane reads
+// back, and the next row's x loads while it reduces the current one. The
+// launcher sizes rows_per_warp so that the whole grid is resident at once
+// (one wave).
+//
+// adaln_block_rows (K5, and K3 past 1152, up to 8192) and silu_mul_rows: one
+// block of 128 threads per row; thread i owns chunks (8 elements: one
+// 16-byte bf16 vector) i, i + 128, ..., at most C of them (C a compile-time
+// 1, 2, 4 or 8). The reductions go through warp shuffles and one
+// shared-memory slot per warp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -50,9 +76,13 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // block-per-row kernels
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;  // elements per chunk
+constexpr int kChunk = 8;  // elements a thread moves at once in the block-per-row kernels
+constexpr int kQuad = 4;  // elements a lane moves at once in adaln_warp_rows
+constexpr int kRowWarps = 4;  // adaln_warp_rows: warps, so rows in flight, per block
+constexpr int kWarpQuads = 9;  // adaln_warp_rows: quads per lane at most
+constexpr int kWarpMaxWidth = 32 * kWarpQuads * kQuad;  // 1152
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[kChunk]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -85,6 +115,47 @@ __device__ __forceinline__ void store8(bf16* p, const float (&v)[kChunk]) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// One quad (4 elements) as it arrives from device memory, for the warp path.
+template <typename T>
+struct Quad;
+template <>
+struct Quad<bf16> {
+  uint2 u;
+};
+template <>
+struct Quad<float> {
+  float4 f;
+};
+
+__device__ __forceinline__ void load_quad(const bf16* p, Quad<bf16>& q) {
+  q.u = *reinterpret_cast<const uint2*>(p);
+}
+
+__device__ __forceinline__ void load_quad(const float* p, Quad<float>& q) {
+  q.f = *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void unpack(const Quad<bf16>& q, float (&v)[kQuad]) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.u.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void unpack(const Quad<float>& q, float (&v)[kQuad]) {
+  v[0] = q.f.x; v[1] = q.f.y; v[2] = q.f.z; v[3] = q.f.w;
+}
+
+__device__ __forceinline__ void store_quad(bf16* p, const float (&v)[kQuad]) {
+  uint2 raw;
+  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ void store_quad(float* p, const float (&v)[kQuad]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
 struct Add {
   __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
 };
@@ -92,12 +163,28 @@ struct Max {
   __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };
 
+template <int C>
+__device__ __forceinline__ float sum_of(const float (&part)[C]) {
+  float r = part[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) r += part[c];
+  return r;
+}
+
+// Reduce v over the warp by an xor tree: every lane ends with the same bits
+// (each step adds the same two values in both lanes of a pair).
+template <typename Op>
+__device__ __forceinline__ float warp_reduce(float v, Op op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Reduce v over the block; every thread gets the same value, combined in the
 // same order. smem holds kWarps floats and may be reused by the next call.
 template <typename Op>
 __device__ __forceinline__ float block_reduce(float v, float* smem, Op op) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  v = warp_reduce(v, op);
   __syncthreads();  // the previous reduction's readers are done with smem
   if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
   __syncthreads();
@@ -105,6 +192,63 @@ __device__ __forceinline__ float block_reduce(float v, float* smem, Op op) {
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) r = op(r, smem[w]);
   return r;
+}
+
+// h / d, the quotient __fdiv_rn returns (IEEE, round to nearest even), for
+// a finite h, a positive normal d and y = __frcp_rn(d), without a divide:
+// h * y is within two ulps of it; each step computes the remainder h - q * d
+// in one fma and adds remainder * y (Markstein's correction), and after the
+// second step q is the rounded quotient. Here d is a row's int8 scale (at
+// least 1e-12 / 127, with |h / d| <= 127.0001) or the row width, so no step
+// overflows, and a quotient small enough to underflow gets code 0 either
+// way.
+__device__ __forceinline__ float div_rn(float h, float d, float y) {
+  float q = __fmul_rn(h, y);
+  q = __fmaf_rn(__fmaf_rn(-q, d, h), y, q);
+  return __fmaf_rn(__fmaf_rn(-q, d, h), y, q);
+}
+
+// A row's int8 scale s = max(max|h|, 1e-12) * (1/127), and what dividing
+// by it takes: y = 1/s rounded to nearest, once per row, and s_div, which is
+// s unless s is infinite (a row holding an infinity), then FLT_MAX: with
+// y = 0 that gives h / s = 0 for a finite h and NaN for an infinite one, as
+// __fdiv_rn does.
+struct RowScale {
+  float s, s_div, y;
+};
+
+__device__ __forceinline__ RowScale row_scale_of(float amax) {
+  const float s = __fmul_rn(fmaxf(amax, 1e-12f), 1.0f / 127.0f);
+  return {s, fminf(s, FLT_MAX), __frcp_rn(s)};
+}
+
+// The int8 code of q = h / s in the low byte: clamp(rint(q), -127, 127).
+// |q| <= 127.0001 by the choice of s, so the clamp binds only on NaN, which
+// fmaxf maps to -127 as the clamp does. q + 1.5 * 2^23 then lies in
+// [2^23, 2^24), where floats are the integers, so the round-to-nearest-even
+// add is rintf's rounding and leaves 2^22 + rint(q) in the low mantissa
+// bits: its low byte is the code in two's complement.
+__device__ __forceinline__ unsigned int code_bits(float q) {
+  return __float_as_uint(__fadd_rn(fmaxf(q, -127.0f), 12582912.0f));
+}
+
+// The 8 codes of one chunk, packed in memory order.
+__device__ __forceinline__ uint2 pack_codes(const float (&h)[kChunk], const RowScale& r) {
+  unsigned int c[kChunk];
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) c[i] = code_bits(div_rn(h[i], r.s_div, r.y));
+  uint2 out;
+  out.x = __byte_perm(__byte_perm(c[0], c[1], 0x0040), __byte_perm(c[2], c[3], 0x0040), 0x5410);
+  out.y = __byte_perm(__byte_perm(c[4], c[5], 0x0040), __byte_perm(c[6], c[7], 0x0040), 0x5410);
+  return out;
+}
+
+// The 4 codes of one quad, packed in memory order.
+__device__ __forceinline__ uint32_t pack_codes(const float (&h)[kQuad], const RowScale& r) {
+  unsigned int c[kQuad];
+#pragma unroll
+  for (int i = 0; i < kQuad; ++i) c[i] = code_bits(div_rn(h[i], r.s_div, r.y));
+  return __byte_perm(__byte_perm(c[0], c[1], 0x0040), __byte_perm(c[2], c[3], 0x0040), 0x5410);
 }
 
 // The row's result h (chunk c of this thread at h[c]), stored: in T, or as
@@ -122,26 +266,14 @@ __device__ __forceinline__ void store_row(float (&h)[C][kChunk], int chunks, voi
         for (int i = 0; i < kChunk; ++i) amax = fmaxf(amax, fabsf(h[c][i]));
       }
     }
-    amax = block_reduce(amax, smem, Max());
-    const float s = __fmul_rn(fmaxf(amax, 1e-12f), 1.0f / 127.0f);
+    const RowScale rs = row_scale_of(block_reduce(amax, smem, Max()));
     int8_t* q_row = static_cast<int8_t*>(out) + row * width;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int idx = threadIdx.x + c * kThreads;
-      if (idx < chunks) {
-        union {
-          int8_t b[kChunk];
-          uint2 u;
-        } pack;
-#pragma unroll
-        for (int i = 0; i < kChunk; ++i) {
-          const float r = fminf(fmaxf(rintf(__fdiv_rn(h[c][i], s)), -127.0f), 127.0f);
-          pack.b[i] = static_cast<int8_t>(static_cast<int>(r));
-        }
-        *reinterpret_cast<uint2*>(q_row + idx * kChunk) = pack.u;
-      }
+      if (idx < chunks) *reinterpret_cast<uint2*>(q_row + idx * kChunk) = pack_codes(h[c], rs);
     }
-    if (threadIdx.x == 0) row_scale[row] = s;
+    if (threadIdx.x == 0) row_scale[row] = rs.s;
   } else {
     T* o_row = static_cast<T*>(out) + row * width;
 #pragma unroll
@@ -152,11 +284,166 @@ __device__ __forceinline__ void store_row(float (&h)[C][kChunk], int chunks, voi
   }
 }
 
+// BYTES (8 or 16) from global to shared memory without passing through
+// registers, and the wait for this thread's copies.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float4* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One row of adaln_warp_rows, from this lane's quads x of the row to its
+// int8 codes and scale. Lane l holds quads l, l + 32, ..., C of them; all
+// but the last lie in the row (C is the fewest that cover it), the last
+// only where last_in. slots holds the lane's (1 + scale) at slots[c * 64]
+// and shift at slots[c * 64 + 32] for quad c. Each sum runs over a quad's 4
+// values in order, then over the lane's quads in order, then over the lanes
+// by an xor tree: a fixed order, in short dependent chains. The mean and the
+// variance divide by dim as __fdiv_rn does (div_rn, y_dim = 1/dim rounded).
+template <typename T, int C>
+__device__ __forceinline__ void adaln_quant_row(const Quad<T> (&x)[C], const float4* slots, int lane,
+                                                bool last_in, int dim, float y_dim, float eps, int8_t* out,
+                                                float* row_scale, long long row) {
+  const float f_dim = static_cast<float>(dim);
+  float v[C][kQuad], part[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    part[c] = 0.0f;
+    if (c < C - 1 || last_in) {
+      unpack(x[c], v[c]);
+#pragma unroll
+      for (int i = 0; i < kQuad; ++i) part[c] += v[c][i];
+    }
+  }
+  const float mean = div_rn(warp_reduce(sum_of(part), Add()), f_dim, y_dim);
+
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    part[c] = 0.0f;
+    if (c < C - 1 || last_in) {
+#pragma unroll
+      for (int i = 0; i < kQuad; ++i) {
+        const float d = __fsub_rn(v[c][i], mean);
+        v[c][i] = d;
+        part[c] += d * d;
+      }
+    }
+  }
+  const float var = div_rn(warp_reduce(sum_of(part), Add()), f_dim, y_dim);
+  const float rstd = rsqrtf(__fadd_rn(var, eps));
+
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    part[c] = 0.0f;
+    if (c < C - 1 || last_in) {
+      const float4 sc = slots[c * 64], sh = slots[c * 64 + 32];
+      const float scv[kQuad] = {sc.x, sc.y, sc.z, sc.w};
+      const float shv[kQuad] = {sh.x, sh.y, sh.z, sh.w};
+#pragma unroll
+      for (int i = 0; i < kQuad; ++i) {
+        const float n = __fmul_rn(v[c][i], rstd);
+        v[c][i] = __fadd_rn(__fmul_rn(n, scv[i]), shv[i]);
+        part[c] = fmaxf(part[c], fabsf(v[c][i]));
+      }
+    }
+  }
+
+  float amax = part[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) amax = fmaxf(amax, part[c]);
+  // over the warp in one integer max: non-negative floats order as their
+  // bits, and amax holds no NaN (fmaxf drops one)
+  const RowScale rs = row_scale_of(__uint_as_float(__reduce_max_sync(0xffffffffu, __float_as_uint(amax))));
+  int8_t* q_row = out + row * dim + lane * kQuad;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c < C - 1 || last_in) *reinterpret_cast<uint32_t*>(q_row + c * 32 * kQuad) = pack_codes(v[c], rs);
+  }
+  if (lane == 0) row_scale[row] = rs.s;
+}
+
+// K3 for widths up to kWarpMaxWidth: a warp per row (see the header).
+// cond holds, per warp, 2 C float4 slots per lane: (1 + scale) and shift of
+// the lane's quads, slot k of quad c at [(c * 2 + k) * 32 + lane], so a
+// warp's reads of one slot are 32 consecutive float4 (no bank conflict).
+// They arrive by cp.async, all at once and beside the first row (scale's
+// raw quad in slot 0, shift's in slot 1; a bf16 quad fills half of it),
+// and each lane converts its own slots in place: no other thread reads
+// them, so no barrier orders them.
+template <typename T, int C>
+__global__ void __launch_bounds__(kRowWarps * 32, 4)
+adaln_warp_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* __restrict__ scale,
+                long long cond_stride, int8_t* __restrict__ out, float* __restrict__ row_scale,
+                int seq, int dim, int blocks_per_batch, int rows_per_warp, float eps) {
+  extern __shared__ float4 cond[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long b = blockIdx.x / blocks_per_batch;
+  const int t0 = ((blockIdx.x % blocks_per_batch) * kRowWarps + warp) * rows_per_warp;
+  if (t0 >= seq) return;  // warp-uniform, and nothing below waits on another warp
+  const int t_end = min(t0 + rows_per_warp, seq);
+  const bool last_in = lane + (C - 1) * 32 < dim / kQuad;
+  float4* slots = cond + warp * (C * 2 * 32) + lane;
+
+  const T* scale_row = scale + b * cond_stride + lane * kQuad;
+  const T* shift_row = shift + b * cond_stride + lane * kQuad;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c < C - 1 || last_in) {
+      cp_async<kQuad * sizeof(T)>(&slots[c * 64], scale_row + c * 32 * kQuad);
+      cp_async<kQuad * sizeof(T)>(&slots[c * 64 + 32], shift_row + c * 32 * kQuad);
+    }
+  }
+  const T* x_row = x + (b * seq + t0) * dim + lane * kQuad;
+  Quad<T> cur[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c < C - 1 || last_in) load_quad(x_row + c * 32 * kQuad, cur[c]);
+  }
+  cp_async_wait_all();
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c < C - 1 || last_in) {
+      float sc[kQuad];
+      unpack(*reinterpret_cast<const Quad<T>*>(&slots[c * 64]), sc);
+      if constexpr (sizeof(T) == 2) {  // an fp32 shift arrives as it is used
+        float sh[kQuad];
+        unpack(*reinterpret_cast<const Quad<T>*>(&slots[c * 64 + 32]), sh);
+        slots[c * 64 + 32] = make_float4(sh[0], sh[1], sh[2], sh[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < kQuad; ++i) sc[i] = __fadd_rn(1.0f, sc[i]);
+      slots[c * 64] = make_float4(sc[0], sc[1], sc[2], sc[3]);
+    }
+  }
+
+  const float y_dim = __frcp_rn(static_cast<float>(dim));
+  for (int t = t0; t < t_end; ++t) {
+    Quad<T> next[C];  // the next row loads while this one is reduced
+    if (t + 1 < t_end) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c < C - 1 || last_in) load_quad(x_row + dim + c * 32 * kQuad, next[c]);
+      }
+    }
+    adaln_quant_row<T, C>(cur, slots, lane, last_in, dim, y_dim, eps, out, row_scale, b * seq + t);
+#pragma unroll
+    for (int c = 0; c < C; ++c) cur[c] = next[c];
+    x_row += dim;
+  }
+}
+
+// adaLN, K5, and K3 for rows wider than kWarpMaxWidth: one block of 128
+// threads per row.
 template <typename T, bool QUANT, int C>
 __global__ void __launch_bounds__(kThreads)
-adaln_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* __restrict__ scale,
-           long long cond_stride, void* __restrict__ out, float* __restrict__ row_scale,
-           int seq, int dim, float eps) {
+adaln_block_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* __restrict__ scale,
+                 long long cond_stride, void* __restrict__ out, float* __restrict__ row_scale,
+                 int seq, int dim, float eps) {
   __shared__ float smem[kWarps];
   const long long row = blockIdx.x;
   const long long b = row / seq;
@@ -238,24 +525,66 @@ silu_mul_rows(const T* __restrict__ gate, const T* __restrict__ val, void* __res
   store_row<T, QUANT, C>(h, chunks, out, row_scale, row, width, smem);
 }
 
-// C, the chunks per thread, is the smallest of 1, 2, 4, 8 that covers the row.
+// The warp-per-row launch. rows_per_warp is the least that makes the grid
+// fit in one wave: every block resident at once, so none waits for another
+// to finish. Which warp handles a row does not change its result.
+template <typename T, int C>
+cudaError_t launch_warp_rows(const T* x, const T* shift, const T* scale, long long cond_stride,
+                             int8_t* out, float* row_scale, int rows, int seq, int dim, float eps,
+                             cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * kRowWarps * C * 2 * 32;
+  static int per_sm = 0;  // resident blocks per SM: a property of the kernel, the same on every launch
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, adaln_warp_rows<T, C>, kRowWarps * 32, smem);
+    if (err != cudaSuccess) return err;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long wave = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;  // blocks resident at once
+  const int batch = rows / seq;
+  const auto per_batch = [seq](int r) { return (seq + kRowWarps * r - 1) / (kRowWarps * r); };
+  int rows_per_warp = static_cast<int>((rows + wave * kRowWarps - 1) / (wave * kRowWarps));
+  while (rows_per_warp < seq && static_cast<long long>(batch) * per_batch(rows_per_warp) > wave) ++rows_per_warp;
+  const int blocks_per_batch = per_batch(rows_per_warp);
+  adaln_warp_rows<T, C><<<batch * blocks_per_batch, kRowWarps * 32, smem, stream>>>(
+      x, shift, scale, cond_stride, out, row_scale, seq, dim, blocks_per_batch, rows_per_warp, eps);
+  return cudaGetLastError();
+}
+
+// K3 up to 1152 wide takes the warp path with C = ceil(quads / 32); K5, and
+// K3 on wider rows, the block path with C, the chunks per thread, the
+// smallest of 1, 2, 4, 8 that covers the row.
 template <typename T, bool QUANT>
 cudaError_t launch_adaln(const void* x, const void* shift, const void* scale,
                          long long cond_stride, void* out, float* row_scale, int rows, int seq,
                          int dim, float eps, cudaStream_t stream) {
-  const int per_thread = (dim / kChunk + kThreads - 1) / kThreads;
-  const dim3 grid(rows), block(kThreads);
   const T* xp = static_cast<const T*>(x);
   const T* sh = static_cast<const T*>(shift);
   const T* sc = static_cast<const T*>(scale);
+  if (QUANT && dim <= kWarpMaxWidth) {
+    int8_t* q = static_cast<int8_t*>(out);
+#define WARP_ROWS(C) \
+  case C: return launch_warp_rows<T, C>(xp, sh, sc, cond_stride, q, row_scale, rows, seq, dim, eps, stream)
+    switch ((dim / kQuad + 31) / 32) {
+      WARP_ROWS(1); WARP_ROWS(2); WARP_ROWS(3); WARP_ROWS(4); WARP_ROWS(5);
+      WARP_ROWS(6); WARP_ROWS(7); WARP_ROWS(8); WARP_ROWS(kWarpQuads);
+      default: return cudaErrorInvalidValue;
+    }
+#undef WARP_ROWS
+  }
+  const int per_thread = (dim / kChunk + kThreads - 1) / kThreads;
+  const dim3 grid(rows), block(kThreads);
   if (per_thread <= 1) {
-    adaln_rows<T, QUANT, 1><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
+    adaln_block_rows<T, QUANT, 1><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
   } else if (per_thread <= 2) {
-    adaln_rows<T, QUANT, 2><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
+    adaln_block_rows<T, QUANT, 2><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
   } else if (per_thread <= 4) {
-    adaln_rows<T, QUANT, 4><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
+    adaln_block_rows<T, QUANT, 4><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
   } else if (per_thread <= 8) {
-    adaln_rows<T, QUANT, 8><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
+    adaln_block_rows<T, QUANT, 8><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -291,7 +620,7 @@ extern "C" {
 // is_bf16 selects bf16 (1) or fp32 (0) inputs; quant selects the int8
 // epilogue (out int8 (rows, width), row_scale fp32 (rows,)) over a store in
 // the input dtype (out (rows, width), row_scale unused). The width must be a
-// multiple of 8, at most 8192; rows at least 1.
+// multiple of 8, at most 8192; rows at least 1, a multiple of seq.
 
 int adaln_rows_fwd(const void* x, const void* shift, const void* scale, long long cond_stride,
                    void* out, void* row_scale, int rows, int seq, int dim, float eps,

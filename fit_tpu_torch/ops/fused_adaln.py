@@ -93,7 +93,7 @@ def swiglu_glue(
 
 # --- the CUDA kernels of csrc/row_quant.cu --------------------------------
 
-_MAX_WIDTH = 8192  # 128 threads x 8 chunks of 8 elements
+_MAX_WIDTH = 8192  # 128 threads x 8 chunks of 8 elements (K3 takes a warp per row up to 1152)
 
 
 def _check_rows(name: str, t: torch.Tensor, ref: torch.Tensor) -> None:
@@ -190,7 +190,11 @@ def launch_silu_mul(gate, value, *, quant: bool):
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("row_quant")
+    return bind(_build.load("row_quant"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``row_quant.cu`` on ``lib``."""
     if lib.adaln_rows_fwd.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.adaln_rows_fwd.argtypes = [

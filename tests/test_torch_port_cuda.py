@@ -23,7 +23,8 @@ Tolerances, against the plain versions on the same inputs:
   calls bit for bit equal;
 - the row kernels with int8 epilogue: codes within one step, on at most
   1e-3 of them plus one (a LayerNorm sum taken in another order can move a
-  value across a rounding boundary), row scales within 1e-6 relative;
+  value across a rounding boundary), row scales within 1e-6 relative, and
+  two launches bit for bit equal;
 - the row kernels without it: one bf16 ulp in bf16 (the same fp32 value,
   rounded once), a value under 2^-8 in magnitude judged at the ulp of 2^-8
   (where shift + n * (1 + scale) cancels to near zero, fp32 sums taken in
@@ -472,9 +473,16 @@ def row_inputs(kind, b, t, width, device, dtype, seed=0):
     "kind,b,t,width",
     [
         ("adaln", 16, 256, 1152),  # XL, batch 8 with CFG
-        ("adaln", 3, 33, 1152),  # ragged row count
-        ("adaln", 2, 5, 8),  # one chunk a row
+        ("adaln", 3, 33, 1152),  # ragged row count: T no multiple of the 4 rows a block takes
+        ("adaln", 2, 5, 8),  # one chunk a row; on K3's warp, 2 lanes of 32
         ("adaln", 1, 3, 8192),  # the widest row: 8 chunks a thread
+        ("adaln", 1, 1, 1152),  # one row; the widest K3's warp takes (9 quads a lane)
+        ("adaln", 2, 7, 384),  # S: 3 quads a lane
+        ("adaln", 3, 6, 768),  # B: 6 quads a lane; the last block of each batch row half full
+        ("adaln", 2, 9, 1024),  # L: 8 quads a lane
+        ("adaln", 2, 3, 1160),  # one chunk past the widest row K3's warp takes: a block per row
+        ("adaln", 64, 256, 1152),  # batch 32 with CFG: each warp walks several rows
+        ("adaln", 40, 251, 1152),  # several rows a warp, and T no multiple of the rows a block takes
         ("silu", 16, 256, 3072),  # XL SwiGLU hidden
         ("silu", 3, 33, 3072),
         ("silu", 2, 7, 2048),  # FiT-B's hidden
@@ -509,6 +517,19 @@ def test_row_kernels_match_plain_versions(cuda_device, kind, b, t, width, with_q
             assert bf16_ulps(got, want) <= 1
         else:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,dtype", [(16, 256, torch.bfloat16), (40, 251, torch.float32)], ids=["bf16", "fp32"])
+def test_adaln_quant_launches_repeat_bit_for_bit(cuda_device, b, t, dtype):
+    """Two launches of K3 on the same inputs give identical codes and scales:
+    each row's sums run in a fixed order, whichever warp takes the row."""
+    args = row_inputs("adaln", b, t, 1152, cuda_device, dtype, seed=5)
+    q1, s1 = quant.adaln_quant(*args)
+    q2, s2 = quant.adaln_quant(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(q1, q2)
+    assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
 
 
 @pytest.mark.cuda
