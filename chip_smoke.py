@@ -56,9 +56,21 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      ``pos_kind="absolute"`` and ``ffn="mlp"`` over mixed sizes (prefix
      masks), kernels vs plain. Then the bf16 K1's device time at the three
      main-path shapes (phases 3, 6a and 7a) beside its predecessor's, the
-     bound and SDPA.
+     bound and SDPA;
+  8. the command line, on phase 4's FiT-XL/2 weights at full depth: a
+     reference (PyTorch Lightning) checkpoint with an EMA copy in its
+     optimizer state is written under build/ (and deleted at the end);
+     ``cli.sample`` samples its EMA with DPM-Solver++ (bit-identical to
+     ``FiTSampler`` on the same weights, labels and generator), DDIM, DDIM
+     packed over four sizes and DDIM in fp32; ``cli.quantize`` writes int8
+     artifacts without and with SmoothQuant on 2 batches, whose forward is
+     checked against the plain kernels (and the equalized bf16 model
+     against the unequalized one); ``cli.sample`` samples the artifact;
+     ``python -m fit_tpu_torch.cli.serve`` serves it on 127.0.0.1 (12
+     requests, a repeated seed bit-identical) and exits 0 on SIGINT. Every
+     CLI run's launch counts are asserted.
 The line before the last is a JSON object with each kernel's numbers
-(launches by path: sample, serve, train, dit); the last line is
+(launches by path: sample, serve, train, dit, cli); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -67,14 +79,20 @@ from __future__ import annotations
 
 import io
 import json
+import os
+import queue
 import re
+import shutil
+import signal
 import subprocess
+import sys
 import threading
 import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from http.server import ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -548,6 +566,16 @@ def trainer_phase(kernel_modules):
     return totals
 
 
+def seeded_fit_xl(create_fit, gen):
+    """FiT-XL/2 (bf16 compute) with weights drawn from ``gen``, N(0, 0.02)
+    for every parameter (the reference init zeroes adaLN: its eps would be 0)."""
+    model = create_fit("FiT-XL/2", dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
 def guided_inputs(sampler_mod, embed_dim, sizes, gen, method="rotate"):
     """Inputs of one guided forward at the given image sizes: RoPE tables
     (``embed_dim`` the head dim) or sincos tables (``method="absolute"``,
@@ -736,6 +764,46 @@ def post_sample(base: str, body: dict):
         return exc.code, exc.read().decode()
 
 
+FIRST_REQUEST = {"label": 3, "height": 256, "width": 256, "seed": 42}
+
+
+def request_burst(base: str):
+    """12 seeded requests of mixed sizes to the server at ``base``: one
+    alone in its batch, then eleven at once, among them the first one's
+    seed again. Returns the (body, (status, latent)) pairs, the wall
+    seconds, /stats and /healthz."""
+    t0 = time.perf_counter()
+    responses = [(FIRST_REQUEST, post_sample(base, FIRST_REQUEST))]  # alone in its batch
+    burst = [
+        {"label": 100 + 37 * i, "height": h, "width": w, "seed": 1000 + i}
+        for i, (h, w) in enumerate((MIXED_SIZES * 3)[:10])
+    ]
+    burst.insert(5, dict(FIRST_REQUEST))  # the same seed, now among ten others
+    with ThreadPoolExecutor(len(burst)) as pool:
+        responses += list(zip(burst, pool.map(lambda b: post_sample(base, b), burst)))
+    wall = time.perf_counter() - t0
+    with urllib.request.urlopen(f"{base}/stats", timeout=60) as resp:
+        stats = json.loads(resp.read())
+    with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
+        health = json.loads(resp.read())
+    return responses, wall, stats, health
+
+
+def check_burst(responses, stats, health) -> float:
+    """Every response a 200 with a finite latent of its size, every request
+    served; returns the repeated seed's max |difference|."""
+    for body, (status, out) in responses:
+        if status != 200:
+            raise AssertionError(f"/sample {body} -> {status}: {out}")
+        want = (4, body["height"] // 8, body["width"] // 8)
+        if tuple(out.shape) != want or out.dtype != np.float32 or not np.isfinite(out).all():
+            raise AssertionError(f"/sample {body}: bad latent {out.shape} {out.dtype}")
+    repeat = [out for body, (_, out) in responses if body == FIRST_REQUEST]
+    if health != {"status": "ok"} or stats["served"] != len(responses):
+        raise AssertionError(f"/stats served {stats['served']} of {len(responses)}; /healthz {health}")
+    return float(np.abs(repeat[0] - repeat[1]).max())
+
+
 def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
     """Phase 5, serving: SamplingServer + the HTTP handler on a free local
     port; 12 seeded requests of mixed sizes, one seed twice in two batch
@@ -754,39 +822,15 @@ def serve_phase(qmodel, serve_mod, make_handler, kernel_modules):
             mod.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        first = {"label": 3, "height": 256, "width": 256, "seed": 42}
-        responses = [(first, post_sample(base, first))]  # alone in its batch
-        burst = [
-            {"label": 100 + 37 * i, "height": h, "width": w, "seed": 1000 + i}
-            for i, (h, w) in enumerate((MIXED_SIZES * 3)[:10])
-        ]
-        burst.insert(5, dict(first))  # the same seed, now among ten others
-        with ThreadPoolExecutor(len(burst)) as pool:
-            responses += list(zip(burst, pool.map(lambda b: post_sample(base, b), burst)))
-        wall = time.perf_counter() - t0
+        responses, wall, stats, health = request_burst(base)
         launches = kernel_launches(*kernel_modules)
-        with urllib.request.urlopen(f"{base}/stats", timeout=60) as resp:
-            stats = json.loads(resp.read())
-        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as resp:
-            health = json.loads(resp.read())
     finally:
         httpd.shutdown()
         httpd.server_close()
         server.close()
         http_thread.join(timeout=60)
     peak = torch.cuda.max_memory_allocated()
-
-    for body, (status, out) in responses:
-        if status != 200:
-            raise AssertionError(f"/sample {body} -> {status}: {out}")
-        want = (4, body["height"] // 8, body["width"] // 8)
-        if tuple(out.shape) != want or out.dtype != np.float32 or not np.isfinite(out).all():
-            raise AssertionError(f"/sample {body}: bad latent {out.shape} {out.dtype}")
-    repeat = [out for body, (_, out) in responses if body == first]
-    seed_diff = float(np.abs(repeat[0] - repeat[1]).max())
-    if health != {"status": "ok"} or stats["served"] != len(responses):
-        raise AssertionError(f"/stats served {stats['served']} of {len(responses)}; /healthz {health}")
+    seed_diff = check_burst(responses, stats, health)
     batches = stats["batches"]
     per_step = {k: 0 for k in launches}
     per_step.update(rope_attention_fwd=DEPTH, adaln_quant=2 * DEPTH, silu_mul_quant=DEPTH)
@@ -1031,6 +1075,254 @@ def fit_absolute_check(sampler_mod) -> None:
         raise AssertionError("the FiT absolute forward through the kernel disagrees with the plain one")
 
 
+# 8. the command line, at FiT-XL/2 width and full depth on phase 4's seeded
+# weights: a reference (PyTorch Lightning) checkpoint written under build/,
+# sampled, quantized and served through the CLIs
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+CLI_EMA_SCALE = 0.5  # the checkpoint's EMA copy: the weights times this, so a load of the wrong copy shows
+SERVE_READY_S = 600  # the longest the serve CLI may take to print its listening line
+SERVE_EXIT_S = 120  # and to exit after SIGINT
+_REFERENCE_NAMES = (
+    ("t_embedder.fc1.", "t_embedder.mlp.0."), ("t_embedder.fc2.", "t_embedder.mlp.2."),
+    ("y_embedder.table.", "y_embedder.embedding_table."),
+    ("final.adaLN.", "final_layer.adaLN_modulation.1."), ("final.linear.", "final_layer.linear."),
+)
+
+
+def reference_key(name: str) -> str:
+    """A port state-dict key -> the reference module's (Lightning adds ``model.``)."""
+    for port, ref in _REFERENCE_NAMES:
+        if name.startswith(port):
+            return "model." + ref + name[len(port):]
+    return "model." + name.replace(".adaLN.", ".adaLN_modulation.1.")
+
+
+def cli_launches(kernel_modules, run):
+    """``run()`` with every launch count set to 0 just before; returns its
+    result and the counts just after."""
+    for mod in kernel_modules:
+        mod.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, kernel_launches(*kernel_modules)
+
+
+def expect_launches(what, launches, **per_run):
+    want = {k: 0 for k in launches}
+    want.update(per_run)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def serve_cli_phase(artifact: Path):
+    """8d: ``python -m fit_tpu_torch.cli.serve`` from the int8 artifact, in a
+    subprocess on 127.0.0.1 (a free port), DPM-Solver++ 10 steps at batch
+    8: the 12 requests of phase 5, then SIGINT, after which it must exit 0.
+    Returns the burst's numbers."""
+    cmd = [sys.executable, "-m", "fit_tpu_torch.cli.serve", "--checkpoint-path", str(artifact), "--sampler", "dpm",
+           "--num-sampling-steps", str(SERVE_STEPS), "--serve-batch-size", str(SERVE_BATCH),
+           "--max-batch-wait-s", "0.1", "--host", "127.0.0.1", "--port", "0", "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    lines: "queue.Queue[str]" = queue.Queue()
+    log = []
+    reader = threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        base = None
+        while base is None:
+            remaining = SERVE_READY_S - (time.perf_counter() - t0)
+            if remaining <= 0 or proc.poll() is not None:
+                raise AssertionError(f"the serve CLI did not start listening: {''.join(log[-20:])}")
+            try:
+                line = lines.get(timeout=min(remaining, 5))
+            except queue.Empty:
+                continue
+            log.append(line)
+            found = re.search(r"listening on (http://127\.0\.0\.1:\d+)", line)
+            base = found.group(1) if found else None
+        ready_s = time.perf_counter() - t0
+        responses, wall, stats, health = request_burst(base)
+        proc.send_signal(signal.SIGINT)
+        code = proc.wait(timeout=SERVE_EXIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=60)
+    while not lines.empty():
+        log.append(lines.get())
+    if code != 0:
+        raise AssertionError(f"the serve CLI exited {code} after SIGINT: {''.join(log[-20:])}")
+    seed_diff = check_burst(responses, stats, health)
+    if seed_diff != 0.0:
+        raise AssertionError(f"a repeated seed under dpm drifted by {seed_diff} across batch compositions")
+    return {"ready_s": ready_s, "wall": wall, "stats": stats, "n": len(responses)}
+
+
+def cli_phase(kernel_modules, smi, ddim_step_ms):
+    """Phase 8, the command line. Returns its launch counts (all CLI runs
+    in this process) and deletes what it wrote under build/."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    try:
+        return _cli_phase(kernel_modules, smi, ddim_step_ms)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+
+def _cli_phase(kernel_modules, smi, ddim_step_ms):
+    from fit_tpu_torch import sampling as sampler_mod
+    from fit_tpu_torch.cli import quantize as cli_quantize
+    from fit_tpu_torch.cli import sample as cli_sample
+    from fit_tpu_torch.models.fit import create_fit
+    from fit_tpu_torch.ops.equalize import calibrate, equalize_params, synthetic_calib_batch
+    from fit_tpu_torch.utils.config import SampleConfig
+
+    cuda = torch.device("cuda")
+    print(f"phase 8 on: {smi}", flush=True)
+    # 8a. the reference checkpoint: phase 4's weights, an EMA copy beside them
+    model = seeded_fit_xl(create_fit, torch.Generator(device="cuda").manual_seed(0))
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    ema = {k: v * CLI_EMA_SCALE for k, v in weights.items()}
+    ckpt = CLI_DIR / "last.ckpt"
+    t0 = time.perf_counter()
+    torch.save({"state_dict": {reference_key(k): v for k, v in weights.items()},
+                "optimizer_states": [{"ema": list(ema.values())}], "epoch": 0, "global_step": 0}, ckpt)
+    write_s = time.perf_counter() - t0
+    del weights
+    cfg = SampleConfig(model="FiT-XL/2", num_sampling_steps=STEPS, cfg_scale=CFG_SCALE)
+    t0 = time.perf_counter()
+    loaded = cli_sample.load_model_and_params(cfg, torch_checkpoint=str(ckpt), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    wrong = [k for k, v in loaded.state_dict().items() if not torch.equal(v.cpu(), ema[k])]
+    if wrong:
+        raise AssertionError(f"the CLI loaded other weights than the checkpoint's EMA copy: {wrong[:4]}")
+    print(f"cli: reference checkpoint {ckpt.stat().st_size / 2**30:.3f} GiB (weights and EMA, fp32) written in "
+          f"{write_s:.2f} s; load_model_and_params took its EMA in {load_s:.2f} s", flush=True)
+
+    # 8b. sample through the CLI: dpm, then ddim, ddim packed over the mixed sizes, and fp32
+    common = ["--model", "FiT-XL/2", "--num-sampling-steps", str(STEPS), "--cfg-scale", str(CFG_SCALE),
+              "--num-samples", str(BATCH), "--batch-size", str(BATCH), "--image-height", "256",
+              "--image-width", "256", "--device", "cuda", "--torch-checkpoint", str(ckpt)]
+    totals = {}
+
+    def run_cli(what, main, argv, **per_run):
+        out, launches = cli_launches(kernel_modules, lambda: main(argv))
+        expect_launches(what, launches, **per_run)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        return out
+
+    k1_run = DEPTH * STEPS  # one guided forward a step, one K1 launch a block
+    dpm = run_cli("cli.sample dpm", cli_sample.main, common + ["--sampler", "dpm", "--output-dir", str(CLI_DIR / "dpm")],
+                  rope_attention_fwd=k1_run)
+    files = sorted((CLI_DIR / "dpm").glob("latent_*.npy"))
+    saved = [np.load(f) for f in files]
+    if len(files) != BATCH or any(a.shape != (4, 32, 32) or not np.isfinite(a).all() for a in saved):
+        raise AssertionError(f"cli.sample wrote {len(files)} latents: {[a.shape for a in saved]}")
+    labels, generator = cli_sample.batch_draws(cfg.global_seed, 0, BATCH, cfg.num_classes, cuda)
+    ref_model = create_fit("FiT-XL/2", dtype=torch.bfloat16, device="cuda")
+    ref_model.load_state_dict(ema)
+    del ema
+    ref_sampler = sampler_mod.FiTSampler(ref_model, num_sampling_steps=STEPS, cfg_scale=CFG_SCALE, sampler="dpm",
+                                         device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref_sampler.sample(labels, 256, 256, generator=generator)
+    torch.cuda.synchronize()
+    dpm_step_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    got = np.stack(dpm["latents"])
+    same = labels == dpm["labels"] and np.array_equal(got, want.cpu().numpy())
+    print(f"cli.sample dpm: FiT-XL/2 256x256 {STEPS} steps cfg {CFG_SCALE} batch {BATCH} from the reference "
+          f"checkpoint's EMA: {len(files)} latents, bit-identical to FiTSampler on the same weights, labels and "
+          f"generator: {same}; {dpm_step_ms:.2f} ms/step in-process (CLI batch {dpm['seconds'][0] / STEPS * 1e3:.2f} "
+          f"ms/step; phase 4's DDIM {ddim_step_ms:.2f} ms/step)", flush=True)
+    if not same:
+        raise AssertionError(f"the CLI's latents differ from FiTSampler's: max |diff| "
+                             f"{float(np.abs(got - want.cpu().numpy()).max())}")
+    del ref_sampler, want
+
+    ddim = run_cli("cli.sample ddim", cli_sample.main,
+                   common + ["--sampler", "ddim", "--output-dir", str(CLI_DIR / "ddim")], rope_attention_fwd=k1_run)
+    if not all(np.isfinite(x).all() for x in ddim["latents"]):
+        raise AssertionError("cli.sample ddim: non-finite latents")
+    sizes = ",".join(f"{h}x{w}" for h, w in MIXED_SIZES)
+    mixed = run_cli("cli.sample ddim mixed", cli_sample.main,
+                    common + ["--sampler", "ddim", "--image-sizes", sizes, "--output-dir", str(CLI_DIR / "mixed")],
+                    rope_attention_fwd=k1_run)
+    want_shapes = [(4, MIXED_SIZES[i % 4][0] // 8, MIXED_SIZES[i % 4][1] // 8) for i in range(BATCH)]
+    if [lat.shape for lat in mixed["latents"]] != want_shapes or not all(np.isfinite(x).all() for x in mixed["latents"]):
+        raise AssertionError(f"cli.sample mixed: {[lat.shape for lat in mixed['latents']]}")
+    fp32 = run_cli("cli.sample fp32", cli_sample.main,
+                   common + ["--sampler", "ddim", "--dtype", "float32", "--output-dir", str(CLI_DIR / "fp32")],
+                   rope_attention_fwd=k1_run)
+    if not all(np.isfinite(x).all() for x in fp32["latents"]):
+        raise AssertionError("cli.sample --dtype float32: non-finite latents")
+    print(f"cli.sample ddim batch {BATCH}: {ddim['seconds'][0] / STEPS * 1e3:.2f} ms/step; ddim packed over {sizes} "
+          f"batch {BATCH}: {mixed['seconds'][0] / STEPS * 1e3:.2f} ms/step; "
+          f"--dtype float32 ddim batch {BATCH}: {fp32['seconds'][0] / STEPS * 1e3:.2f} ms/step (CLI batch times, "
+          f"host clock to the read-back)", flush=True)
+
+    # 8c. quantize through the CLI, without and with SmoothQuant on 2 batches
+    art, art_eq = CLI_DIR / "int8", CLI_DIR / "int8_eq"
+    t0 = time.perf_counter()
+    run_cli("cli.quantize", cli_quantize.main, common + ["--output", str(art)])
+    quant_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli("cli.quantize --equalize 2", cli_quantize.main, common + ["--output", str(art_eq), "--equalize", "2"],
+            rope_attention_fwd=2 * DEPTH)  # one calibration forward a batch
+    quant_eq_s = time.perf_counter() - t0
+    art_bytes = dir_bytes(art_eq)
+    qcfg = SampleConfig(**{**json.loads((art_eq / "config.json").read_text()), "checkpoint_path": str(art_eq)})
+    qmodel = sampler_mod.cast_for_sampling(cli_sample.load_model_and_params(qcfg, device="cuda"), cuda)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    inputs = guided_inputs(sampler_mod, qmodel.head_dim, [(256, 256)] * BATCH, gen)
+    rel_int8 = rel_rms(guided_forward(qmodel, inputs), guided_forward(qmodel, inputs, plain=True))
+    del qmodel
+    # the equalized bf16 model (the same calibration as cli.quantize's) against the loaded one
+    rng = np.random.default_rng(0)
+    calib = [synthetic_calib_batch(loaded, rng, batch=4, size=256) for _ in range(2)]
+    eq_model = create_fit("FiT-XL/2", dtype=torch.bfloat16, device="cuda")
+    eq_model.load_state_dict(equalize_params(loaded.state_dict(), calibrate(loaded, calib)))
+    eq_model, loaded = (sampler_mod.cast_for_sampling(m, cuda) for m in (eq_model, loaded))
+    rel_eq = rel_rms(guided_forward(eq_model, inputs), guided_forward(loaded, inputs))
+    del eq_model, loaded
+    torch.cuda.empty_cache()
+    print(f"cli.quantize: {quant_s:.2f} s, with --equalize 2 {quant_eq_s:.2f} s; int8 artifact "
+          f"{art_bytes / 2**30:.3f} GiB; its guided int8 forward, K3/K4 vs plain: rel_rms {rel_int8:.3e}; the "
+          f"equalized bf16 forward vs the unequalized one: rel_rms {rel_eq:.3e} (tol {FORWARD_REL_RMS:g})", flush=True)
+    if not (rel_int8 <= FORWARD_REL_RMS and rel_eq <= FORWARD_REL_RMS):
+        raise AssertionError("the equalized int8 artifact's forward disagrees")
+    int8 = run_cli("cli.sample int8", cli_sample.main,
+                   ["--checkpoint-path", str(art_eq), "--sampler", "dpm", "--device", "cuda",
+                    "--output-dir", str(CLI_DIR / "int8_out")],
+                   rope_attention_fwd=k1_run, adaln_quant=2 * k1_run, silu_mul_quant=k1_run)
+    if len(int8["latents"]) != BATCH or not all(np.isfinite(x).all() for x in int8["latents"]):
+        raise AssertionError("cli.sample from the int8 artifact: bad latents")
+    print(f"cli.sample int8 artifact dpm batch {BATCH}: {int8['seconds'][0] / STEPS * 1e3:.2f} ms/step", flush=True)
+
+    # 8d. serve through the CLI, in its own process
+    served = serve_cli_phase(art_eq)
+    stats = served["stats"]
+    print(
+        f"cli.serve: int8 artifact, dpm {SERVE_STEPS} steps batch {SERVE_BATCH}: listening after "
+        f"{served['ready_s']:.2f} s (load + warmup); {served['n']} requests in {stats['batches']} batches, "
+        f"{served['wall']:.3f} s wall; latency p50 {stats['latency_p50_s'] * 1e3:.1f} ms p95 "
+        f"{stats['latency_p95_s'] * 1e3:.1f} ms; occupancy {stats['occupancy']:.3f}; the repeated seed "
+        f"bit-identical; exit 0 after SIGINT; cli launches {totals}",
+        flush=True,
+    )
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card")
@@ -1100,10 +1392,7 @@ def main() -> None:
 
     # 4. sampling: FiT-XL/2, seeded random weights, DDIM + CFG at 256^2
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = create_fit("FiT-XL/2", dtype=torch.bfloat16, device="cuda")
-    with torch.no_grad():
-        for p in model.parameters():  # reference init zeroes adaLN: its eps would be 0
-            p.normal_(0.0, 0.02, generator=gen)
+    model = seeded_fit_xl(create_fit, gen)
     sampler = sampler_mod.FiTSampler(
         model, num_sampling_steps=STEPS, cfg_scale=CFG_SCALE, sampler="ddim", device="cuda"
     )
@@ -1249,6 +1538,10 @@ def main() -> None:
             flush=True,
         )
 
+    # 8. the command line: a reference checkpoint sampled, quantized and served
+    torch.cuda.empty_cache()
+    cli_totals = cli_phase(kernel_modules, smi, step_ms)
+
     def strided_entry(name, replaces, main_case):
         main = strided[(main_case, torch.bfloat16)]
         err = max(r["max_abs_err"] for (i, _), r in strided.items() if STRIDED_CASES[i][0] == name)
@@ -1257,7 +1550,7 @@ def main() -> None:
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, bound_by, library_ms=None, sample_count=0):
         by_path = {"sample": sample_count, "serve": serve_launches[name], "train": train_launches[name],
-                   "dit": dit_launches[name]}
+                   "dit": dit_launches[name], "cli": cli_totals[name]}
         return {
             "name": name,
             "route": "cuda",

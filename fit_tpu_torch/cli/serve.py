@@ -1,12 +1,20 @@
-"""HTTP front end over :class:`fit_tpu_torch.serve.SamplingServer`.
+"""Serving command line: an HTTP front end over
+:class:`fit_tpu_torch.serve.SamplingServer`, with ``fit_tpu``'s flags (less
+the VAE's) and ``--device``.
 
-Counterpart of ``make_handler`` in ``fit_tpu/cli/serve.py``, on the
-standard library's ``http.server``:
+    python -m fit_tpu_torch.cli.serve --checkpoint-path results/quantized \
+        --port 8000 --serve-batch-size 8 --num-sampling-steps 50 [--sampler dpm] \
+        [--torch-checkpoint last.ckpt] [--quant int8] [--device cuda]
+
+It loads the model as ``fit_tpu_torch.cli.sample`` does, runs one warm-up
+batch (unless ``--no-warmup``), prints ``listening on http://HOST:PORT``
+(``--port 0`` takes a free port) and serves until SIGINT, then stops
+taking connections, serves what it accepted and exits 0.
 
   POST /sample   body {"label": 3, "height": 256, "width": 256, "seed": 7,
                  "deadline_s": 30}
                  -> 200, .npy bytes of the (C, h, w) float32 latent; a seed
-                 reproduces the result under "ddim".
+                 reproduces the result under "ddim" and "dpm".
                  400 for a bad request, 429 (+ Retry-After) when the bounded
                  queue is full, 504 when deadline_s passed before dispatch,
                  500 when the batch failed.
@@ -14,27 +22,22 @@ standard library's ``http.server``:
                  rejected and expired counts, latency percentiles
   GET  /healthz  -> 200 {"status": "ok"}
 
-Serve a model::
-
-    from http.server import ThreadingHTTPServer
-    server = SamplingServer(model, batch_size=8, num_sampling_steps=50, device="cuda")
-    ThreadingHTTPServer(("127.0.0.1", 8000), make_handler(server)).serve_forever()
-
-The command-line entry point, which loads a checkpoint, and the PNG
-responses (which need the VAE) are not ported yet.
+PNG responses wait for the VAE.
 """
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
-from http.server import BaseHTTPRequestHandler
+import signal
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from fit_tpu_torch.serve import DeadlineExceeded, ServerOverloaded
+from fit_tpu_torch.serve import DeadlineExceeded, SamplingServer, ServerOverloaded
 
-__all__ = ["make_handler"]
+__all__ = ["make_handler", "build", "main"]
 
 
 def make_handler(server):
@@ -100,3 +103,66 @@ def make_handler(server):
             self._send(200, buf.getvalue(), "application/octet-stream")
 
     return Handler
+
+
+def build(argv=None):
+    """Parse the flags, load the model, start the :class:`SamplingServer`
+    (warmed up unless ``--no-warmup``) and bind the HTTP server, without
+    serving yet. Returns ``(httpd, server)``."""
+    from fit_tpu_torch.cli.sample import load_model_and_params, read_config
+
+    parser = argparse.ArgumentParser(description="Serve a trained FiT over HTTP with fit_tpu_torch")
+    parser.add_argument("--torch-checkpoint", type=str, default=None,
+                        help="serve a reference (PyTorch Lightning) FiT checkpoint")
+    parser.add_argument("--quant", choices=["none", "int8"], default="none",
+                        help="int8: the w8a8 path (fit_tpu_torch.ops.quant)")
+    parser.add_argument("--port", type=int, default=8000, help="0 takes a free port")
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--serve-batch-size", type=int, default=8,
+                        help="static batch: requests pack into exactly this many slots per dispatch")
+    parser.add_argument("--max-batch-wait-s", type=float, default=0.25,
+                        help="the longest the first request of a batch waits for it to fill")
+    parser.add_argument("--max-queue", type=int, default=None,
+                        help="bounded request queue (default 8x batch; 0 = unbounded); full: HTTP 429")
+    parser.add_argument("--no-warmup", action="store_true",
+                        help="skip the warm-up batch (the first request pays for it instead)")
+    args, cfg = read_config(parser, argv)
+
+    model = load_model_and_params(cfg, torch_checkpoint=args.torch_checkpoint, quant=args.quant, device=args.device)
+    server = SamplingServer(
+        model, batch_size=args.serve_batch_size, max_batch_wait_s=args.max_batch_wait_s,
+        max_queue=args.max_queue, num_sampling_steps=cfg.num_sampling_steps, cfg_scale=cfg.cfg_scale,
+        sampler=cfg.sampler, num_classes=cfg.num_classes, device=args.device,
+    )
+    try:
+        if not args.no_warmup:
+            print("[serve] warming up...", flush=True)
+            print(f"[serve] warmup done in {server.warmup():.1f}s", flush=True)
+        httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
+    except BaseException:
+        server.close(drain=False)
+        raise
+    return httpd, server
+
+
+def main(argv=None) -> int:
+    """Build the server and serve until SIGINT; returns 0 once the accepted
+    requests are served."""
+    # SIGINT ends serve_forever even where the parent process ignored it
+    signal.signal(signal.SIGINT, signal.default_int_handler)
+    httpd, server = build(argv)
+    host, port = httpd.server_address[:2]
+    print(f"[serve] listening on http://{host}:{port}", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        print("[serve] interrupted: draining", flush=True)
+    finally:
+        httpd.server_close()
+        server.close(drain=True)
+    print(f"[serve] stopped: {json.dumps(server.stats())}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

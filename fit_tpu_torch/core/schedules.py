@@ -1,7 +1,8 @@
 """Noise schedules and diffusion coefficient tables, float64 numpy.
 
-Counterpart of ``fit_tpu/core/schedules.py`` for what sampling needs: the
-named beta schedules, the per-timestep coefficient tables and timestep
+Counterpart of ``fit_tpu/core/schedules.py``: the beta schedule shapes
+("quad", "linear", "warmup10", "warmup50", "const", "jsd") and the named
+schedules built on them, the per-timestep coefficient tables and timestep
 respacing. Same arithmetic in the same order, so every table is byte-equal
 to ``fit_tpu``'s. Samplers index a table, then round the value to float32.
 """
@@ -15,6 +16,8 @@ from typing import Sequence, Union
 import numpy as np
 
 __all__ = [
+    "beta_schedule",
+    "betas_from_alpha_bar",
     "named_beta_schedule",
     "DiffusionCoefficients",
     "compute_coefficients",
@@ -23,7 +26,33 @@ __all__ = [
 ]
 
 
-def _betas_from_alpha_bar(num_steps: int, alpha_bar, max_beta: float = 0.999) -> np.ndarray:
+def _warmup_betas(beta_start: float, beta_end: float, n: int, frac: float) -> np.ndarray:
+    betas = beta_end * np.ones(n, dtype=np.float64)
+    warmup = int(n * frac)
+    betas[:warmup] = np.linspace(beta_start, beta_end, warmup, dtype=np.float64)
+    return betas
+
+
+def beta_schedule(name: str, *, beta_start: float, beta_end: float, num_steps: int) -> np.ndarray:
+    """The schedule shapes: "quad", "linear", "warmup10", "warmup50",
+    "const" or "jsd" (1/T, 1/(T-1), ..., 1)."""
+    if name == "quad":
+        return np.linspace(beta_start**0.5, beta_end**0.5, num_steps, dtype=np.float64) ** 2
+    if name == "linear":
+        return np.linspace(beta_start, beta_end, num_steps, dtype=np.float64)
+    if name == "warmup10":
+        return _warmup_betas(beta_start, beta_end, num_steps, 0.1)
+    if name == "warmup50":
+        return _warmup_betas(beta_start, beta_end, num_steps, 0.5)
+    if name == "const":
+        return beta_end * np.ones(num_steps, dtype=np.float64)
+    if name == "jsd":
+        return 1.0 / np.linspace(num_steps, 1, num_steps, dtype=np.float64)
+    raise ValueError(f"unknown beta schedule shape: {name}")
+
+
+def betas_from_alpha_bar(num_steps: int, alpha_bar, max_beta: float = 0.999) -> np.ndarray:
+    """Betas that discretize a continuous alpha-bar function of t in [0, 1]."""
     betas = []
     for i in range(num_steps):
         t1 = i / num_steps
@@ -37,9 +66,9 @@ def named_beta_schedule(name: str, num_steps: int) -> np.ndarray:
     or "squaredcos_cap_v2"."""
     if name == "linear":
         scale = 1000 / num_steps
-        return np.linspace(scale * 0.0001, scale * 0.02, num_steps, dtype=np.float64)
+        return beta_schedule("linear", beta_start=scale * 0.0001, beta_end=scale * 0.02, num_steps=num_steps)
     if name == "squaredcos_cap_v2":
-        return _betas_from_alpha_bar(
+        return betas_from_alpha_bar(
             num_steps, lambda t: math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
         )
     raise ValueError(f"unknown beta schedule: {name}")

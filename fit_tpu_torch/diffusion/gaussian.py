@@ -1,10 +1,12 @@
 """Gaussian diffusion: the q/p math of sampling and training, in torch.
 
-Counterpart of ``fit_tpu/diffusion/gaussian.py`` for what sampling and
-training need: eps prediction with FIXED_LARGE or (``learn_sigma``)
-LEARNED_RANGE variance, DDPM and DDIM steps, timestep respacing, the
-forward process ``q_sample`` and the masked eps-MSE training loss (the VLB
-terms of ``learn_sigma`` training are not ported). The coefficient tables
+Counterpart of ``fit_tpu/diffusion/gaussian.py``: eps or (``predict_xstart``)
+x0 prediction with FIXED_LARGE, (``sigma_small``) FIXED_SMALL or
+(``learn_sigma``) LEARNED_RANGE variance over any named noise schedule;
+DDPM, DDIM and reverse-DDIM steps with the ``denoised_fn`` and ``cond_fn``
+hooks; timestep respacing; the forward process ``q_sample`` and the masked
+MSE training loss. The VLB terms (the loss of ``learn_sigma`` training,
+``use_kl``, ``rescale_learned_sigmas``) are not ported. The coefficient tables
 are float64 numpy; a step indexes a table and rounds the value to float32,
 as ``fit_tpu`` does. Each table is copied to a device once and indexed
 there, so a sampling loop makes no host round trip.
@@ -69,14 +71,16 @@ def masked_global_mse(model_output: torch.Tensor, target: torch.Tensor, mask: to
 
 
 class GaussianDiffusion:
-    """A (possibly respaced) Gaussian diffusion process over an eps model.
+    """A (possibly respaced) Gaussian diffusion process.
 
-    ``learn_sigma``: the model's output carries a second half of channels
-    that interpolates the log variance (LEARNED_RANGE); otherwise the
-    variance is FIXED_LARGE. ``timestep_map`` maps local step indices to
-    the base process's timesteps, which the model was trained on (``None``:
-    not respaced). ``original_num_steps`` is the base process's length (the
-    range training draws timesteps from).
+    The model predicts eps, or x0 with ``predict_xstart`` (START_X). Its
+    variance is FIXED_LARGE, FIXED_SMALL (``sigma_small``: the posterior
+    variance) or, with ``learn_sigma``, LEARNED_RANGE: the output carries a
+    second half of channels that interpolates the log variance.
+    ``timestep_map`` maps local step indices to the base process's
+    timesteps, which the model was trained on (``None``: not respaced).
+    ``original_num_steps`` is the base process's length (the range training
+    draws timesteps from).
     """
 
     def __init__(
@@ -85,9 +89,14 @@ class GaussianDiffusion:
         learn_sigma: bool = False,
         timestep_map: Optional[np.ndarray] = None,
         original_num_steps: Optional[int] = None,
+        *,
+        predict_xstart: bool = False,
+        sigma_small: bool = False,
     ):
         self.betas = np.asarray(betas, dtype=np.float64)
         self.learn_sigma = learn_sigma
+        self.predict_xstart = predict_xstart
+        self.sigma_small = sigma_small
         self.timestep_map = timestep_map
         self.original_num_steps = len(self.betas) if original_num_steps is None else original_num_steps
         self.c = compute_coefficients(self.betas)
@@ -139,14 +148,15 @@ class GaussianDiffusion:
         )
 
     def training_losses(self, model_fn: ModelFn, x_start, t, noise, mask=None) -> dict:
-        """Training loss terms for the eps-prediction MSE: ``mse`` (and
-        ``loss``) are per-sample means of the squared error over the valid
-        tokens (``mask`` (N, T)). The VLB term of ``learn_sigma`` is not
-        ported and raises."""
+        """Training loss terms of the MSE objective: ``mse`` (and ``loss``)
+        are per-sample means of the squared error against eps (x0 with
+        ``predict_xstart``) over the valid tokens (``mask`` (N, T)). The VLB
+        term of ``learn_sigma`` is not ported and raises."""
         if self.learn_sigma:
             raise NotImplementedError("the VLB loss of learn_sigma training is not ported")
         x_t = self.q_sample(x_start, t, noise)
-        mse = masked_mean_flat((noise - model_fn(x_t, t)) ** 2, mask)
+        target = x_start if self.predict_xstart else noise
+        mse = masked_mean_flat((target - model_fn(x_t, t)) ** 2, mask)
         return {"mse": mse, "loss": mse}
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
@@ -169,23 +179,29 @@ class GaussianDiffusion:
             self._x("sqrt_recip_alphas_cumprod", t, x_t.dim()) * x_t - pred_xstart
         ) / self._x("sqrt_recipm1_alphas_cumprod", t, x_t.dim())
 
-    def p_mean_variance(self, model_fn: ModelFn, x, t, clip_denoised: bool = True) -> dict:
+    def p_mean_variance(self, model_fn: ModelFn, x, t, clip_denoised: bool = True, denoised_fn=None) -> dict:
         """Moments of p(x_{t-1} | x_t) and the x0 prediction; ``model_fn``
-        is already wrapped (:meth:`wrap_model`) and bound to its conditioning."""
+        is already wrapped (:meth:`wrap_model`) and bound to its conditioning.
+        ``denoised_fn(x0)`` transforms the x0 prediction before the clip."""
         nd = x.dim()
-        eps = model_fn(x, t)
+        out = model_fn(x, t)
         if self.learn_sigma:
-            eps, var_values = eps.chunk(2, dim=1)
+            out, var_values = out.chunk(2, dim=1)
             min_log = self._x("posterior_log_variance_clipped", t, nd)
             max_log = self._x("log_betas", t, nd)
             frac = (var_values + 1) / 2
             model_log_variance = frac * max_log + (1 - frac) * min_log
             model_variance = torch.exp(model_log_variance)
+        elif self.sigma_small:
+            model_variance = self._x("posterior_variance", t, nd)
+            model_log_variance = self._x("posterior_log_variance_clipped", t, nd)
         else:
             model_variance = self._x("fixed_large_variance", t, nd)
             model_log_variance = self._x("fixed_large_log_variance", t, nd)
 
-        pred_xstart = self._predict_xstart_from_eps(x, t, eps)
+        pred_xstart = out if self.predict_xstart else self._predict_xstart_from_eps(x, t, out)
+        if denoised_fn is not None:
+            pred_xstart = denoised_fn(pred_xstart)
         if clip_denoised:
             pred_xstart = pred_xstart.clamp(-1, 1)
         model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
@@ -196,18 +212,50 @@ class GaussianDiffusion:
             "pred_xstart": pred_xstart,
         }
 
-    def p_sample(self, model_fn: ModelFn, x, t, noise, clip_denoised: bool = True) -> dict:
+    def condition_mean(self, cond_fn, p_mean_var: dict, x, t) -> torch.Tensor:
+        """The mean shifted by the variance times ``cond_fn(x, t)``, the
+        gradient of a log-likelihood (classifier guidance)."""
+        gradient = cond_fn(x, t)
+        return p_mean_var["mean"].float() + p_mean_var["variance"] * gradient.float()
+
+    def condition_score(self, cond_fn, p_mean_var: dict, x, t) -> dict:
+        """``p_mean_var`` with eps moved by ``-sqrt(1 - alpha_bar) *
+        cond_fn(x, t)`` and x0 and the mean recomputed from it (the score
+        form of guidance, for DDIM)."""
+        alpha_bar = self._x("alphas_cumprod", t, x.dim())
+        eps = self._predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(x, t)
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self._predict_xstart_from_eps(x, t, eps)
+        out["mean"], _, _ = self.q_posterior_mean_variance(out["pred_xstart"], x, t)
+        return out
+
+    def p_sample(
+        self, model_fn: ModelFn, x, t, noise, clip_denoised: bool = True, denoised_fn=None, cond_fn=None
+    ) -> dict:
         """One DDPM ancestral step with explicit noise."""
-        out = self.p_mean_variance(model_fn, x, t, clip_denoised)
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
         nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+        if cond_fn is not None:
+            out["mean"] = self.condition_mean(cond_fn, out, x, t)
         sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
     def ddim_sample(
-        self, model_fn: ModelFn, x, t, noise=None, clip_denoised: bool = True, eta: float = 0.0
+        self,
+        model_fn: ModelFn,
+        x,
+        t,
+        noise=None,
+        clip_denoised: bool = True,
+        denoised_fn=None,
+        cond_fn=None,
+        eta: float = 0.0,
     ) -> dict:
         """One DDIM step; deterministic (no noise) at ``eta=0``."""
-        out = self.p_mean_variance(model_fn, x, t, clip_denoised)
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t)
         eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
         alpha_bar = self._x("alphas_cumprod", t, x.dim())
         alpha_bar_prev = self._x("alphas_cumprod_prev", t, x.dim())
@@ -229,15 +277,39 @@ class GaussianDiffusion:
             sample = mean_pred + nonzero * sigma * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
+    def ddim_reverse_sample(
+        self, model_fn: ModelFn, x, t, clip_denoised: bool = True, denoised_fn=None, cond_fn=None
+    ) -> dict:
+        """One step of the DDIM reverse ODE (encoding), from t to t + 1."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t)
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar_next = self._x("alphas_cumprod_next", t, x.dim())
+        mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_next) + torch.sqrt(1 - alpha_bar_next) * eps
+        return {"sample": mean_pred, "pred_xstart": out["pred_xstart"]}
+
 
 def create_diffusion(
     timestep_respacing: Union[str, Sequence[int], None],
+    noise_schedule: str = "linear",
+    use_kl: bool = False,
+    sigma_small: bool = False,
+    predict_xstart: bool = False,
     learn_sigma: bool = False,
+    rescale_learned_sigmas: bool = False,
     diffusion_steps: int = 1000,
 ) -> GaussianDiffusion:
-    """The reference defaults: linear betas over ``diffusion_steps`` base
-    steps, eps prediction, respaced to ``timestep_respacing``."""
-    betas = named_beta_schedule("linear", diffusion_steps)
+    """``fit_tpu``'s factory and defaults: ``noise_schedule`` betas over
+    ``diffusion_steps`` base steps, eps prediction, FIXED_LARGE variance,
+    respaced to ``timestep_respacing``. ``use_kl`` and
+    ``rescale_learned_sigmas`` choose VLB losses, which are not ported
+    (ROADMAP Queue 1, item 4) and raise."""
+    if use_kl or rescale_learned_sigmas:
+        raise NotImplementedError(
+            "use_kl and rescale_learned_sigmas select the VLB losses, not ported yet (ROADMAP Queue 1, item 4)"
+        )
+    betas = named_beta_schedule(noise_schedule, diffusion_steps)
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
     keep = space_timesteps(diffusion_steps, timestep_respacing)
@@ -247,4 +319,6 @@ def create_diffusion(
         learn_sigma=learn_sigma,
         timestep_map=tmap if len(keep) != diffusion_steps else None,
         original_num_steps=diffusion_steps,
+        predict_xstart=predict_xstart,
+        sigma_small=sigma_small,
     )

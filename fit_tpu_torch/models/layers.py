@@ -33,6 +33,7 @@ __all__ = [
     "modulate",
     "layer_norm_fp32",
     "linear",
+    "Projection",
     "make_linear",
     "dense",
     "TimestepEmbedder",
@@ -63,21 +64,32 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
+class Projection(nn.Linear):
+    """An ``nn.Linear`` (same parameters) that computes in its input's
+    dtype: a block's projection. It is called as a module, so forward
+    pre-hooks see its input (SmoothQuant calibration,
+    ``fit_tpu_torch.ops.equalize``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(self, x)
+
+
 def make_linear(in_features: int, out_features: int, quant: str, device=None) -> nn.Module:
-    """``nn.Linear``, or its int8 counterpart on the quantized path
+    """A :class:`Projection`, or its int8 counterpart on the quantized path
     (``fit_tpu``'s ``_dense``)."""
     if quant == "int8":
         return Int8Linear(in_features, out_features, device=device)
-    return nn.Linear(in_features, out_features, device=device)
+    return Projection(in_features, out_features, device=device)
 
 
 def dense(layer: nn.Module, x, dtype: torch.dtype) -> torch.Tensor:
     """A projection's output in ``dtype``: an ``Int8Linear`` takes a float
-    activation or a pre-quantized ``(q, scale)`` pair; an ``nn.Linear``
-    computes in x's dtype, which is ``dtype`` on the model's path."""
+    activation or a pre-quantized ``(q, scale)`` pair; a
+    :class:`Projection` computes in x's dtype, which is ``dtype`` on the
+    model's path."""
     if isinstance(layer, Int8Linear):
         return layer(x, dtype)
-    return linear(layer, x)
+    return layer(x)
 
 
 class TimestepEmbedder(nn.Module):
@@ -240,7 +252,7 @@ class FiTBlock(nn.Module):
         elif ffn == "mlp":
             self.ffn = GeluMlp(hidden_size, int(hidden_size * mlp_ratio), quant, device=device)
         elif ffn == "moe":
-            raise ValueError("ffn='moe' is not ported yet (ROADMAP Queue 1, item 14)")
+            raise ValueError("ffn='moe' is not ported yet (ROADMAP Queue 1, item 9)")
         else:
             raise ValueError(f"unknown ffn {ffn!r}: use 'swiglu' or 'mlp'")
 

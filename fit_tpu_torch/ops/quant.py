@@ -216,16 +216,26 @@ def quantize_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.T
     return out
 
 
-def quantize_model(model):
+def quantize_model(model, calib_batches=None, alpha: float = 0.5):
     """A float FiT -> a new int8 FiT (``quant="int8"``) on the same device,
     with the same compute dtype and the weights of :func:`quantize_params`.
-    SmoothQuant calibration (``fit_tpu``'s ``calib_batches``) is not
-    ported yet."""
+
+    ``calib_batches`` (canvas-forward inputs ``(x, t, y, pos, mask)``, e.g.
+    from ``fit_tpu_torch.ops.equalize.synthetic_calib_batch``): when given,
+    SmoothQuant runs first: the float model is calibrated on them and its
+    per-channel scales are folded into the weights (``equalize_params``,
+    strength ``alpha``), which leaves the float function unchanged and
+    lowers the int8 error where activations have outlier channels."""
     from fit_tpu_torch.models.fit import FiT
 
+    state_dict = model.state_dict()
+    if calib_batches is not None:
+        from fit_tpu_torch.ops.equalize import calibrate, equalize_params
+
+        state_dict = equalize_params(state_dict, calibrate(model, calib_batches), alpha=alpha)
     device = next(model.parameters()).device
     qmodel = FiT(**{**model.config, "quant": "int8", "dtype": model.dtype}, device=device)
-    qmodel.load_state_dict(quantize_params(model.state_dict()))
+    qmodel.load_state_dict(quantize_params(state_dict))
     qmodel.plain_kernels = model.plain_kernels
     return qmodel
 

@@ -1,13 +1,13 @@
 """Sampling pipeline: noise -> packed canvas -> guided denoising loop ->
 unpadded latents.
 
-Counterpart of ``fit_tpu/sampling.py`` for the DDIM and DDPM samplers. The
-canvas, the VisionNTK RoPE tables and the masks are built on the host in
-numpy, the masks are checked there and turned into prefix lengths, and all
-of it moves to the device once per call (from pinned memory, without
-waiting for the device); the denoising loop then runs on the device with no
-host round trip, so a caller can enqueue the next batch while one computes
-(``fit_tpu_torch.serve``).
+Counterpart of ``fit_tpu/sampling.py`` for the DDIM, DDPM and DPM-Solver++
+(2M) samplers. The canvas, the VisionNTK RoPE tables and the masks are
+built on the host in numpy, the masks are checked there and turned into
+prefix lengths, and all of it moves to the device once per call (from
+pinned memory, without waiting for the device); the denoising loop then
+runs on the device with no host round trip, so a caller can enqueue the
+next batch while one computes (``fit_tpu_torch.serve``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from fit_tpu_torch.core.geometry import pad_latent_to_canvas, token_count, unpad_latent
 from fit_tpu_torch.core.pos_embed import rope_freqs_2d, sincos_2d
+from fit_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_2m
 from fit_tpu_torch.diffusion.gaussian import create_diffusion
 from fit_tpu_torch.diffusion.samplers import ddim_sample_loop, p_sample_loop
 from fit_tpu_torch.models.fit import FiT
@@ -96,7 +97,9 @@ class FiTSampler:
     (``model.dtype``, except int8 scales: :func:`cast_for_sampling`) and
     moved to ``device`` once, here; LayerNorm statistics stay fp32 inside
     the blocks. ``device`` is the card unless the caller names another
-    (``"cpu"``); without a card that raises. ``sampler`` is "ddim" or "ddpm".
+    (``"cpu"``); without a card that raises. ``sampler`` is "ddim", "ddpm"
+    or "dpm" (DPM-Solver++ (2M)); "ddim" and "dpm" are deterministic given
+    the initial noise.
     Sizes are in pixels; latents are ``vae_scale`` times smaller. The model
     is a FiT with ``pos_kind="rotate"``, as in ``fit_tpu``; a DiT samples
     through ``fit_tpu_torch.diffusion.samplers`` with its
@@ -115,8 +118,8 @@ class FiTSampler:
         num_classes: int = 1000,
         device="cuda",
     ):
-        if sampler not in ("ddim", "ddpm"):
-            raise ValueError(f"unknown sampler {sampler!r}: use 'ddim' or 'ddpm'")
+        if sampler not in ("ddim", "ddpm", "dpm"):
+            raise ValueError(f"unknown sampler {sampler!r}: use 'ddim', 'ddpm' or 'dpm'")
         if not isinstance(model, FiT) or model.pos_kind != "rotate":
             raise ValueError("FiTSampler samples a FiT with pos_kind='rotate'")
         self.device = resolve_device(device)
@@ -153,6 +156,8 @@ class FiTSampler:
         def model_fn(x, t):
             return self.model.forward_with_cfg(x, t, y_all, pos, None, self.cfg_scale, lengths=lengths)
 
+        if self.sampler == "dpm":
+            return dpm_solver_pp_2m(self.diffusion, model_fn, canvas, clip_denoised=False)[:n]
         loop = ddim_sample_loop if self.sampler == "ddim" else p_sample_loop
         return loop(self.diffusion, model_fn, canvas, generator, clip_denoised=False)[:n]
 

@@ -20,9 +20,10 @@ the VAE's port):
   (noise, enqueueing, readback, futures) overlaps the card's.
 * **Per-request determinism.** A request may carry a ``seed``; its canvas
   noise is drawn on the host with numpy from that seed alone (the same
-  ``z`` as ``fit_tpu``'s server draws), so under "ddim" a seeded request
-  reproduces whatever shared its batch. "ddpm" adds per-step noise from
-  the batch's generator, seeded by the batch counter.
+  ``z`` as ``fit_tpu``'s server draws), so under the deterministic samplers
+  "ddim" and "dpm" a seeded request reproduces whatever shared its batch.
+  "ddpm" adds per-step noise from the batch's generator, seeded by the
+  batch counter.
 * **Backpressure and deadlines.** A bounded queue rejects overflow
   (:class:`ServerOverloaded`, HTTP 429); a request whose deadline passes
   while queued fails with :class:`DeadlineExceeded` (HTTP 504) and never

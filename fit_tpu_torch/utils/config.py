@@ -1,8 +1,9 @@
-"""Training configuration with ``fit_tpu``'s field and flag names.
+"""Training and sampling configurations with ``fit_tpu``'s field and flag names.
 
-Counterpart of ``TrainConfig``, ``add_dataclass_args`` and ``from_args`` of
-``fit_tpu/utils/config.py``: a dataclass whose fields load from JSON and
-are exposed as argparse flags (``--model``, ``--global-batch-size``, ...).
+Counterpart of ``TrainConfig``, ``SampleConfig``, ``add_dataclass_args`` and
+``from_args`` of ``fit_tpu/utils/config.py``: dataclasses whose fields load
+from JSON and are exposed as argparse flags (``--model``,
+``--global-batch-size``, ...).
 The parallelism fields (tp, fsdp, sp, pp, ep) and the FFN flavours other
 than "swiglu" are kept so that a ``fit_tpu`` config loads as it is; the
 port's Trainer raises on the ones it does not run.
@@ -15,7 +16,7 @@ import dataclasses
 import json
 from typing import Optional, Tuple
 
-__all__ = ["TrainConfig", "add_dataclass_args", "from_args"]
+__all__ = ["TrainConfig", "SampleConfig", "add_dataclass_args", "from_args"]
 
 
 @dataclasses.dataclass
@@ -79,6 +80,37 @@ class TrainConfig:
     # the layout of a fit_tpu checkpoint only; the port's model is the same either way
     scan_blocks: bool = True
     profile_dir: str = ""  # a torch.profiler trace of steps 10-20 goes here
+
+
+@dataclasses.dataclass
+class SampleConfig:
+    """What the sample, quantize and serve command lines read. ``fit_tpu``'s
+    fields less the TPU-only ``attn_backend`` and ``scan_blocks`` and the
+    VAE's ``vae``; a ``config.json`` of ``fit_tpu`` or of the Trainer loads
+    as it is (unknown keys are dropped)."""
+
+    checkpoint_path: str = ""
+    num_samples: int = 4
+    num_sampling_steps: int = 250
+    image_height: int = 256
+    image_width: int = 256
+    num_classes: int = 1000
+    cfg_scale: float = 1.5
+    model: str = "FiT-B/2"
+    sampler: str = "ddim"  # "ddim" | "ddpm" | "dpm"
+    dtype: str = "bfloat16"  # or "float32"
+    # packed mixed-resolution sampling: a comma-separated HxW list, e.g.
+    # "256x256,224x288"; sizes cycle across samples
+    image_sizes: str = ""
+    batch_size: int = 100
+    output_dir: str = "samples"
+    global_seed: int = 0
+    use_ema: bool = True
+    # the training FFN flavor ("swiglu" | "mlp"); "moe" and its two fields
+    # are kept for fit_tpu's flags, and building the model raises on it
+    ffn: str = "swiglu"
+    moe_experts: int = 8
+    moe_capacity: float = 1.25
 
 
 def add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:

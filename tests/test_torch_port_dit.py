@@ -257,7 +257,7 @@ def test_fit_absolute_mlp_matches_flax(backend, valid):
 
 
 def test_fit_options_that_are_not_ported_raise():
-    with pytest.raises(ValueError, match="item 14"):
+    with pytest.raises(ValueError, match=r"item 9\)"):
         FiT(hidden_size=HID, depth=1, num_heads=HEADS, ffn="moe")
     with pytest.raises(ValueError, match="pos_kind"):
         FiT(hidden_size=HID, depth=1, num_heads=HEADS, pos_kind="learned")
