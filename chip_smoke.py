@@ -67,16 +67,39 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      checked against the plain kernels (and the equalized bf16 model
      against the unequalized one); ``cli.sample`` samples the artifact;
      ``python -m fit_tpu_torch.cli.serve`` serves it on 127.0.0.1 (12
-     requests, a repeated seed bit-identical) and exits 0 on SIGINT. Every
-     CLI run's launch counts are asserted.
+     requests, a repeated seed bit-identical) and exits 0 on SIGINT. Then
+     the pixels: a seeded full-width SD-VAE written as two diffusers .bin
+     files (Linear and 1x1-conv mid-block attention, the same weights);
+     ``cli.sample --vae-checkpoint`` (dpm batch 8: PNGs within one uint8
+     step of the direct decode of the latents the same seed wrote without
+     the flag; packed over four sizes, each PNG at its size); ``cli.demo``
+     on the int8 artifact (a 512 x 1024 grid); ``cli.serve
+     --vae-checkpoint`` as a process (12 requests, every body an image/png
+     of its size, a repeated seed bit-identical, exit 0 on SIGINT); and
+     ``cli.preprocess`` as a process over a small image tree. Every CLI
+     run's launch counts are asserted (the serving processes print theirs);
+  9. pixels: the same SD-VAE at full width decodes phase 4's FiT-XL/2
+     latents (batch 8 at 256^2, and the four sizes one decode per shape)
+     and phase 7's DiT-XL/2 512^2 latents in bf16 and fp32 (bf16 within
+     5e-2 relative RMS of fp32; ms per batch, img/s, TFLOP/s, the bound,
+     peak memory); encodes 64 synthetic images of four aspect ratios in
+     fp32 through ``preprocess_folder`` (latents of resize_dims / 8, a
+     rerun writes nothing, bf16 encode within 5e-2 of fp32, ms per image);
+     the Trainer takes 2 FiT-B/2 steps on exactly those latents (global
+     batch 32 = 2 x 16, a cut), 3 steps with ``ffn="mlp"`` at global batch
+     128 on phase 6's synthetic latents (ms/step), each run's launches
+     asserted; and one FiT-B/2 learn_sigma loss (RESCALED_MSE: mse + vb)
+     forward and backward through the kernels against their plain
+     versions at phase 6's bars.
 The line before the last is a JSON object with each kernel's numbers
-(launches by path: sample, serve, train, dit, cli); the last line is
+(launches by path: sample, serve, train, dit, cli, pixels); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import os
@@ -494,11 +517,7 @@ def trainer_phase(kernel_modules):
 
     work = Path("build") / "chip_smoke_train"
     shutil.rmtree(work, ignore_errors=True)
-    rng = np.random.default_rng(0)
-    for i in range(512):  # 2 classes, 4 MB of fp16 latents
-        d = work / "latents" / f"class{i % 2}"
-        d.mkdir(parents=True, exist_ok=True)
-        np.save(d / f"{i}.npy", rng.normal(size=TRAIN_LATENTS[i % 4]).astype(np.float16))
+    write_train_latents(work / "latents")  # 2 classes, 4 MB of fp16 latents
 
     def losses(name):
         with open(work / name / "FiT-B-2_metrics.jsonl") as f:
@@ -755,11 +774,17 @@ def int8_gemm_line(quant) -> None:
 
 
 def post_sample(base: str, body: dict):
-    """POST /sample; returns (status, latent or error text)."""
+    """POST /sample; returns (status, latent, (H, W, 3) uint8 image of an
+    image/png body, or error text)."""
     req = urllib.request.Request(f"{base}/sample", data=json.dumps(body).encode(), method="POST")
     try:
         with urllib.request.urlopen(req, timeout=300) as resp:
-            return resp.status, np.load(io.BytesIO(resp.read()))
+            data = resp.read()
+            if resp.headers["Content-Type"] == "image/png":
+                from PIL import Image
+
+                return resp.status, np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+            return resp.status, np.load(io.BytesIO(data))
     except urllib.error.HTTPError as exc:
         return exc.code, exc.read().decode()
 
@@ -789,16 +814,20 @@ def request_burst(base: str):
     return responses, wall, stats, health
 
 
-def check_burst(responses, stats, health) -> float:
-    """Every response a 200 with a finite latent of its size, every request
-    served; returns the repeated seed's max |difference|."""
+def check_burst(responses, stats, health, pixels: bool = False) -> float:
+    """Every response a 200 with a finite latent of its size (``pixels``: a
+    PNG of its height and width), every request served; returns the
+    repeated seed's max |difference|."""
     for body, (status, out) in responses:
         if status != 200:
             raise AssertionError(f"/sample {body} -> {status}: {out}")
-        want = (4, body["height"] // 8, body["width"] // 8)
-        if tuple(out.shape) != want or out.dtype != np.float32 or not np.isfinite(out).all():
-            raise AssertionError(f"/sample {body}: bad latent {out.shape} {out.dtype}")
-    repeat = [out for body, (_, out) in responses if body == FIRST_REQUEST]
+        if pixels:
+            want, dtype = (body["height"], body["width"], 3), np.uint8
+        else:
+            want, dtype = (4, body["height"] // 8, body["width"] // 8), np.float32
+        if tuple(out.shape) != want or out.dtype != dtype or not np.isfinite(out).all():
+            raise AssertionError(f"/sample {body}: bad body {out.shape} {out.dtype}, expected {want} {dtype}")
+    repeat = [out.astype(np.float64) for body, (_, out) in responses if body == FIRST_REQUEST]
     if health != {"status": "ok"} or stats["served"] != len(responses):
         raise AssertionError(f"/stats served {stats['served']} of {len(responses)}; /healthz {health}")
     return float(np.abs(repeat[0] - repeat[1]).max())
@@ -1050,7 +1079,7 @@ def dit_phase(kernel_modules):
         + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])),
         flush=True,
     )
-    return launches
+    return launches, latents
 
 
 def fit_absolute_check(sampler_mod) -> None:
@@ -1118,14 +1147,18 @@ def dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-def serve_cli_phase(artifact: Path):
+def serve_cli_phase(artifact: Path, vae_dir: "Path | None" = None):
     """8d: ``python -m fit_tpu_torch.cli.serve`` from the int8 artifact, in a
     subprocess on 127.0.0.1 (a free port), DPM-Solver++ 10 steps at batch
-    8: the 12 requests of phase 5, then SIGINT, after which it must exit 0.
-    Returns the burst's numbers."""
+    8 (with ``vae_dir``: ``--vae-checkpoint``, PNG bodies): the 12 requests
+    of phase 5, then SIGINT, after which it must exit 0 and print its
+    kernels' launch counts, which must be those of its batches (the warm-up
+    batch included). Returns the burst's numbers and the launch counts."""
     cmd = [sys.executable, "-m", "fit_tpu_torch.cli.serve", "--checkpoint-path", str(artifact), "--sampler", "dpm",
            "--num-sampling-steps", str(SERVE_STEPS), "--serve-batch-size", str(SERVE_BATCH),
            "--max-batch-wait-s", "0.1", "--host", "127.0.0.1", "--port", "0", "--device", "cuda"]
+    if vae_dir is not None:
+        cmd += ["--vae-checkpoint", str(vae_dir)]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env={**os.environ, "PYTHONUNBUFFERED": "1"})
@@ -1159,10 +1192,17 @@ def serve_cli_phase(artifact: Path):
         log.append(lines.get())
     if code != 0:
         raise AssertionError(f"the serve CLI exited {code} after SIGINT: {''.join(log[-20:])}")
-    seed_diff = check_burst(responses, stats, health)
+    seed_diff = check_burst(responses, stats, health, pixels=vae_dir is not None)
     if seed_diff != 0.0:
         raise AssertionError(f"a repeated seed under dpm drifted by {seed_diff} across batch compositions")
-    return {"ready_s": ready_s, "wall": wall, "stats": stats, "n": len(responses)}
+    found = [line for line in log if line.startswith("[serve] kernel launches: ")]
+    if not found:
+        raise AssertionError(f"the serve CLI printed no launch counts: {''.join(log[-20:])}")
+    launches = json.loads(found[-1].split(": ", 1)[1])
+    forwards = SERVE_STEPS * (stats["batches"] + 1)  # one guided forward a step; the warm-up batch too
+    expect_launches("cli.serve" + (" --vae-checkpoint" if vae_dir else ""), launches, rope_attention_fwd=DEPTH * forwards,
+                    adaln_quant=2 * DEPTH * forwards, silu_mul_quant=DEPTH * forwards)
+    return {"ready_s": ready_s, "wall": wall, "stats": stats, "n": len(responses), "launches": launches}
 
 
 def cli_phase(kernel_modules, smi, ddim_step_ms):
@@ -1311,15 +1351,504 @@ def _cli_phase(kernel_modules, smi, ddim_step_ms):
 
     # 8d. serve through the CLI, in its own process
     served = serve_cli_phase(art_eq)
+    for k, v in served["launches"].items():
+        totals[k] = totals.get(k, 0) + v
     stats = served["stats"]
     print(
         f"cli.serve: int8 artifact, dpm {SERVE_STEPS} steps batch {SERVE_BATCH}: listening after "
         f"{served['ready_s']:.2f} s (load + warmup); {served['n']} requests in {stats['batches']} batches, "
         f"{served['wall']:.3f} s wall; latency p50 {stats['latency_p50_s'] * 1e3:.1f} ms p95 "
         f"{stats['latency_p95_s'] * 1e3:.1f} ms; occupancy {stats['occupancy']:.3f}; the repeated seed "
-        f"bit-identical; exit 0 after SIGINT; cli launches {totals}",
+        f"bit-identical; exit 0 after SIGINT; its launches {served['launches']}",
         flush=True,
     )
+
+    # 8e. pixels through the command line: a seeded SD-VAE checkpoint in both attention styles
+    vae_dir = CLI_DIR / "vae"
+    t0 = time.perf_counter()
+    write_vae_dir(vae_dir)
+    vae_write_s = time.perf_counter() - t0
+    vae_cli_phase(kernel_modules, run_cli, common, vae_dir, dpm["latents"], mixed["latents"], art_eq, k1_run, totals,
+                  vae_write_s)
+    print(f"cli launches {totals}", flush=True)
+    return totals
+
+
+# 8e and 9: synthetic images, four aspect ratios (w, h); each resizes to at
+# most 256^2 and at most 256 tokens at patch 2
+IMAGE_SIZES = [(256, 256), (320, 192), (192, 320), (384, 256)]
+VAE_SEED = 10
+
+
+def seeded_vae_state(seed: int = VAE_SEED) -> dict:
+    """The published SD-VAE's shapes with PyTorch's default init (Conv2d and
+    Linear: weight and bias uniform in +-1/sqrt(fan_in); GroupNorm: weight
+    1, bias 0), drawn on the CPU from ``seed``."""
+    from fit_tpu_torch.vae import AutoencoderKL
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return AutoencoderKL(device="cpu").state_dict()
+
+
+def write_vae_dir(vae_dir: Path) -> None:
+    """The seeded SD-VAE as diffusers checkpoints: ``sd-vae-ft-ema.bin``
+    with the Linear (new) mid-block attention and ``sd-vae-ft-mse.bin``, the
+    same weights with the 1x1-convolution (old ldm) attention."""
+    from fit_tpu_torch.vae.convert import to_diffusers_state_dict
+
+    vae_dir.mkdir(parents=True, exist_ok=True)
+    state = seeded_vae_state()
+    torch.save(to_diffusers_state_dict(state, attn_style="new"), vae_dir / "sd-vae-ft-ema.bin")
+    torch.save(to_diffusers_state_dict(state, attn_style="old"), vae_dir / "sd-vae-ft-mse.bin")
+
+
+def png_pixels(path: Path) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def uint8_steps(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest difference of two uint8 images, in steps."""
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def vae_cli_phase(kernel_modules, run_cli, common, vae_dir, dpm_latents, mixed_latents, art_eq, k1_run, totals,
+                  vae_write_s) -> None:
+    """8e: the command lines with ``--vae-checkpoint``. ``cli.sample`` dpm
+    batch 8 writes PNGs within one uint8 step of the direct bf16 decode of
+    the latents the same seed wrote without the flag, and packed over the
+    four sizes each PNG at its own size; ``cli.demo`` on the int8 artifact
+    writes the 512 x 1024 grid; ``cli.serve`` serves PNGs (12 requests, a
+    repeated seed bit-identical, exit 0 on SIGINT); ``cli.preprocess`` runs
+    as a process over a small image tree. Every run's launches asserted."""
+    from fit_tpu_torch.cli import demo as cli_demo
+    from fit_tpu_torch.cli import sample as cli_sample
+    from fit_tpu_torch.data.preprocess import resize_dims
+    from fit_tpu_torch.vae import load_autoencoder, to_uint8
+
+    t0 = time.perf_counter()
+    vae = load_autoencoder(str(vae_dir), "ema", dtype=torch.bfloat16, device="cuda")
+    load_s = time.perf_counter() - t0
+    old_style = load_autoencoder(str(vae_dir), "mse", dtype=torch.bfloat16, device="cuda").state_dict()
+    if any(not torch.equal(v, old_style[k]) for k, v in vae.state_dict().items()):
+        raise AssertionError("the two attention styles of one checkpoint loaded different weights")
+    del old_style
+    size = sum(f.stat().st_size for f in vae_dir.glob("*.bin")) / 2 / 2**20
+    print(f"cli vae: seeded SD-VAE (83.65 M parameters) written as two diffusers .bin of {size:.1f} MiB (Linear and "
+          f"1x1-conv attention) in {vae_write_s:.2f} s; load_autoencoder {load_s:.2f} s; both styles load the same "
+          f"weights", flush=True)
+
+    out = CLI_DIR / "png"
+    res = run_cli("cli.sample dpm --vae-checkpoint", cli_sample.main,
+                  common + ["--sampler", "dpm", "--vae-checkpoint", str(vae_dir), "--output-dir", str(out)],
+                  rope_attention_fwd=k1_run)
+    files = sorted(out.glob("generated_image_*.png"), key=lambda f: int(f.name.split("_")[2]))
+    if len(files) != BATCH or not all(np.array_equal(a, b) for a, b in zip(dpm_latents, res["latents"])):
+        raise AssertionError(f"cli.sample --vae-checkpoint: {len(files)} PNGs; its latents differ from the dpm run's")
+    with torch.inference_mode():
+        direct = to_uint8(vae.decode(torch.from_numpy(np.stack(dpm_latents)).cuda()))
+    steps = max(uint8_steps(png_pixels(f), d) for f, d in zip(files, direct))
+    if steps > 1 or any(png_pixels(f).shape != (256, 256, 3) for f in files):
+        raise AssertionError(f"cli.sample's PNGs are {steps} uint8 steps from the direct decode")
+    sizes = ",".join(f"{h}x{w}" for h, w in MIXED_SIZES)
+    out_mixed = CLI_DIR / "png_mixed"
+    packed = run_cli("cli.sample ddim mixed --vae-checkpoint", cli_sample.main,
+                     common + ["--sampler", "ddim", "--image-sizes", sizes, "--vae-checkpoint", str(vae_dir),
+                               "--output-dir", str(out_mixed)], rope_attention_fwd=k1_run)
+    mixed_files = sorted(out_mixed.glob("generated_image_*.png"), key=lambda f: int(f.name.split("_")[2]))
+    want = [(MIXED_SIZES[i % 4][0], MIXED_SIZES[i % 4][1], 3) for i in range(BATCH)]
+    if [png_pixels(f).shape for f in mixed_files] != want:
+        raise AssertionError(f"cli.sample --image-sizes PNGs: {[png_pixels(f).shape for f in mixed_files]}")
+    with torch.inference_mode():
+        mixed_steps = max(uint8_steps(png_pixels(f), to_uint8(vae.decode(torch.from_numpy(lat)[None].cuda()))[0])
+                          for f, lat in zip(mixed_files, mixed_latents))
+    if mixed_steps > 1:
+        raise AssertionError(f"cli.sample --image-sizes PNGs are {mixed_steps} uint8 steps from the direct decode")
+    print(f"cli.sample --vae-checkpoint: dpm batch {BATCH} 256x256 -> {len(files)} PNGs, latents bit-identical to "
+          f"the dpm run's, PNGs within {steps} uint8 step(s) of the direct bf16 decode of its latents; decode "
+          f"{res['decode_seconds'][0] * 1e3:.1f} ms for the batch (host clock to the read-back); packed over {sizes}: "
+          f"each PNG at its size, within {mixed_steps} step(s), decodes {packed['decode_seconds'][0] * 1e3:.1f} ms "
+          f"(one per sample)", flush=True)
+    del vae
+
+    grid_path = CLI_DIR / "demo.png"
+    run_cli("cli.demo --vae-checkpoint", cli_demo.main,
+            ["--checkpoint_path", str(art_eq), "--model", "FiT-XL/2", "--num_sampling_steps", str(STEPS),
+             "--image_size", "256", "--out", str(grid_path), "--vae-checkpoint", str(vae_dir / "sd-vae-ft-ema.bin"),
+             "--device", "cuda"],
+            rope_attention_fwd=k1_run, adaln_quant=2 * k1_run, silu_mul_quant=k1_run)
+    grid = png_pixels(grid_path)
+    if grid.shape != (512, 1024, 3):
+        raise AssertionError(f"cli.demo grid {grid.shape}")
+
+    served = serve_cli_phase(art_eq, vae_dir)
+    for k, v in served["launches"].items():
+        totals[k] = totals.get(k, 0) + v
+    stats = served["stats"]
+
+    imgs, lat_dir = CLI_DIR / "imgs", CLI_DIR / "latents"
+    shapes = write_image_tree(imgs, 8, seed=3)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fit_tpu_torch.cli.preprocess", "--dataset-path", str(imgs),
+                           "--latent-folder", str(lat_dir), "--vae-checkpoint", str(vae_dir), "--batch-size", "4",
+                           "--device", "cuda"], cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    pre_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli.preprocess exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    got = {str(p.relative_to(lat_dir)): np.load(p) for p in lat_dir.rglob("*.npy")}
+    want = {k: (4, resize_dims(w, h)[1] // 8, resize_dims(w, h)[0] // 8) for k, (w, h) in shapes.items()}
+    if {k: v.shape for k, v in got.items()} != want or not (lat_dir / "path.json").exists():
+        raise AssertionError(f"cli.preprocess wrote {sorted((k, v.shape) for k, v in got.items())}, expected {want}")
+    if not all(v.dtype == np.float16 and np.isfinite(v).all() for v in got.values()):
+        raise AssertionError("cli.preprocess wrote non-finite or non-fp16 latents")
+    print(
+        f"cli.demo --vae-checkpoint (int8 artifact, bf16 decode): a {grid.shape[0]}x{grid.shape[1]} grid; cli.serve "
+        f"--vae-checkpoint: {served['n']} requests in {stats['batches']} batches, every body an image/png of its size, "
+        f"latency p50 {stats['latency_p50_s'] * 1e3:.1f} ms p95 {stats['latency_p95_s'] * 1e3:.1f} ms, listening after "
+        f"{served['ready_s']:.2f} s, the repeated seed bit-identical, exit 0 after SIGINT, launches "
+        f"{served['launches']}; cli.preprocess (a process): {len(got)} images -> fp16 latents of resize_dims / 8 in "
+        f"{pre_s:.2f} s (start-up, load and build included)",
+        flush=True,
+    )
+
+
+def write_image_tree(root: Path, n: int, seed: int) -> dict:
+    """``n`` smooth random RGB PNGs in two class folders, cycling over
+    IMAGE_SIZES. Returns {relative latent path: (w, h)}."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    shapes = {}
+    for i in range(n):
+        w, h = IMAGE_SIZES[i % len(IMAGE_SIZES)]
+        coarse = rng.integers(0, 256, size=(h // 32 + 1, w // 32 + 1, 3), dtype=np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((w, h), resample=Image.BICUBIC), dtype=np.int16)
+        img = np.clip(img + rng.integers(-8, 9, size=img.shape), 0, 255).astype(np.uint8)
+        rel = Path(f"class{i % 2}") / f"{i}.png"
+        (root / rel.parent).mkdir(parents=True, exist_ok=True)
+        Image.fromarray(img).save(root / rel)
+        shapes[str(rel.with_suffix(".npy"))] = (w, h)
+    return shapes
+
+
+# 9. pixels: the published SD-VAE at full width (83.65 M parameters, seeded
+# with PyTorch's default init) decoding phases 4 and 7's latents and
+# encoding synthetic images through preprocess_folder; then the Trainer on
+# those latents, the Trainer with ffn="mlp", and a learn_sigma loss
+PIXELS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pixels"
+VAE_REL_RMS = 5e-2  # bf16 against fp32, decode and encode: the guided bf16 forwards' bar
+ENCODE_IMAGES = 64
+PIXEL_BATCH, PIXEL_ACCUM, PIXEL_STEPS = 32, 2, 2  # a stated cut: 64 latents, global batch 32 = 2 x 16, 2 steps
+MLP_STEPS = 3
+FP32_PEAK, BF16_PEAK = 67e12, 989e12  # H100 SXM dense FLOP/s, fp32 outside the tensor cores and bf16
+
+
+def write_train_latents(root: Path) -> None:
+    """Phase 6's synthetic latents: 512 fp16 latents of TRAIN_LATENTS's four
+    shapes in two classes, from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    for i in range(512):
+        d = root / f"class{i % 2}"
+        d.mkdir(parents=True, exist_ok=True)
+        np.save(d / f"{i}.npy", rng.normal(size=TRAIN_LATENTS[i % 4]).astype(np.float16))
+
+
+def timed_runs(fn, runs: int = 3):
+    """``fn()`` once to warm up, then ``runs`` times, each ended by a
+    synchronize. Returns the last output, the median seconds and the peak
+    memory allocated above what was allocated before the timed runs."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times)), torch.cuda.max_memory_allocated() - base
+
+
+def vae_flops(vae, fn) -> float:
+    """The floating-point operations of ``fn()`` through ``vae``'s
+    convolutions, linear layers and the two attention products, counted by
+    forward hooks on one run (2 per multiply-add)."""
+    from fit_tpu_torch.vae.model import AttnBlock, Conv, Dense
+
+    total = [0.0]
+
+    def conv(mod, _inp, out):
+        total[0] += 2.0 * out.numel() * mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+
+    def dense(mod, _inp, out):
+        total[0] += 2.0 * out.numel() * mod.in_features
+
+    def attn(_mod, inp, _out):
+        n, c, h, w = inp[0].shape
+        total[0] += 4.0 * n * (h * w) ** 2 * c
+
+    hooks = [m.register_forward_hook({Conv: conv, Dense: dense, AttnBlock: attn}[type(m)])
+             for m in vae.modules() if type(m) in (Conv, Dense, AttnBlock)]
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def train_run(kernel_modules, work: Path, name: str, feature_path: Path, global_batch: int, accum: int,
+              max_steps: int, **kw):
+    """The Trainer, FiT-B/2 bf16, pad packing (remat on), for ``max_steps``
+    steps with every launch count set to 0 just before; asserts the counts
+    (K1 twice a block a micro-batch under remat, K2 once). Returns the
+    counts, each step's seconds from the metrics clock and the losses."""
+    from fit_tpu_torch.train.loop import Trainer
+    from fit_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(feature_path=str(feature_path), feature_val_path="", results_dir=str(work / name),
+                      model="FiT-B/2", global_batch_size=global_batch, grad_accum=accum, compute_dtype="bfloat16",
+                      packing="pad", log_every=1, ckpt_every_epochs=100, num_workers=4, **kw)
+    trainer = Trainer(cfg)
+    for mod in kernel_modules:
+        mod.reset_launches()
+    state = trainer.fit(max_steps=max_steps)
+    torch.cuda.synchronize()
+    counts = kernel_launches(*kernel_modules)
+    expect_launches(f"trainer {name}", counts, rope_attention_fwd=2 * B2_DEPTH * accum * max_steps,
+                    rope_attention_bwd=B2_DEPTH * accum * max_steps)
+    with open(work / name / "FiT-B-2_metrics.jsonl") as f:
+        recs = {r["step"]: r for r in map(json.loads, f) if "train_loss" in r}
+    if state.step != max_steps or sorted(recs) != list(range(1, max_steps + 1)):
+        raise AssertionError(f"trainer {name}: step {state.step}, logged {sorted(recs)}")
+    losses = [recs[s]["train_loss"] for s in sorted(recs)]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"trainer {name}: losses {losses}")
+    secs = [recs[s]["time"] - recs[s - 1]["time"] for s in range(2, max_steps + 1)]
+    return counts, secs, losses, trainer
+
+
+def learn_sigma_check(kernel_modules) -> None:
+    """One FiT-B/2 bf16 learn_sigma training loss (LEARNED_RANGE,
+    rescale_learned_sigmas: RESCALED_MSE, mse + vb) forward and backward
+    on a 64 x 4 x 32 x 32 batch (T 256), through the kernels and through
+    their plain versions, on the same weights, inputs and noise, at phase
+    6's bars; the kernel run's launches asserted."""
+    from fit_tpu_torch.core.pos_embed import rope_freqs_2d
+    from fit_tpu_torch.diffusion.gaussian import create_diffusion
+    from fit_tpu_torch.models.fit import create_fit
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    model = create_fit("FiT-B/2", dtype=torch.bfloat16, learn_sigma=True, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    n = TRAIN_BATCH // TRAIN_ACCUM
+    x0 = torch.randn((n, 4, 32, 32), generator=gen, device="cuda")
+    noise = torch.randn((n, 4, 32, 32), generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (n,), generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (n,), generator=gen, device="cuda")
+    pos = torch.from_numpy(rope_freqs_2d(model.head_dim, 16, 16)).cuda().expand(n, -1, -1).contiguous()
+    lengths = torch.full((n,), 256, dtype=torch.int32, device="cuda")
+    diffusion = create_diffusion(None, learn_sigma=True, rescale_learned_sigmas=True)
+
+    def run(plain):
+        model.plain_kernels = plain
+        model.zero_grad(set_to_none=True)
+        for mod in kernel_modules:
+            mod.reset_launches()
+        terms = diffusion.training_losses(
+            lambda x, ts: model(x, ts, y, pos, None, train=False, lengths=lengths), x0, t, noise)
+        loss = terms["loss"].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        grad = torch.cat([p.grad.flatten().float() for p in model.parameters()])
+        return loss.item(), terms["vb"].mean().item(), grad, kernel_launches(*kernel_modules)
+
+    try:
+        (loss_k, vb_k, g_k, counts), (loss_p, vb_p, g_p, plain_counts) = run(False), run(True)
+    finally:
+        model.plain_kernels = False
+    expect_launches("learn_sigma loss, kernels", counts, rope_attention_fwd=B2_DEPTH, rope_attention_bwd=B2_DEPTH)
+    expect_launches("learn_sigma loss, plain", plain_counts)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    cos = torch.nn.functional.cosine_similarity(g_k, g_p, dim=0).item()
+    norm_rel = abs(g_k.norm().item() - g_p.norm().item()) / g_p.norm().item()
+    print(
+        f"learn_sigma loss (RESCALED_MSE: mse + vb), FiT-B/2 bf16 {n} x 4 x 32 x 32, kernels vs plain: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f} rel {rel_loss:.3e} (tol {STEP_LOSS_REL:g}; vb {vb_k:.6f} vs {vb_p:.6f}); grad "
+        f"cosine {cos:.6f} (min {STEP_GRAD_COS:g}); grad norm {g_k.norm().item():.6f} vs {g_p.norm().item():.6f} rel "
+        f"{norm_rel:.3e} (tol {STEP_NORM_REL:g}), max |grad diff| {(g_k - g_p).abs().max().item():.3e}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }",
+        flush=True,
+    )
+    if not (rel_loss <= STEP_LOSS_REL and cos >= STEP_GRAD_COS and norm_rel <= STEP_NORM_REL and np.isfinite(loss_k)):
+        raise AssertionError("the learn_sigma loss through the kernels disagrees with the plain one")
+
+
+# the decode's device activities by kind, from their kernel names
+DECODE_GROUPS = (
+    ("layout transforms (NCHW <-> NHWC)", ("nchwtonhwc", "nhwctonchw", "nchw2nhwc", "nhwc2nchw")),
+    ("convolutions", ("conv", "xmma", "implicit", "cudnn", "sm90_")),
+    ("group norm", ("group_norm", "groupnorm")),
+    ("attention matmuls", ("gemm", "nvjet", "cutlass")),
+    ("softmax", ("softmax",)),
+)
+
+
+def decode_profile(vae, latents) -> None:
+    """One decode of ``latents`` under torch.profiler: device time by kind
+    and the five costliest kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        vae.decode(latents)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            vae.decode(latents)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    by_group = {}
+    for name, ms in by_kernel.items():
+        low = name.lower()
+        group = next((g for g, keys in DECODE_GROUPS if any(k in low for k in keys)), "elementwise and copies")
+        by_group[group] = by_group.get(group, 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"vae decode profile, bf16 {tuple(latents.shape)}: device {sum(by_kernel.values()):.2f} ms (host clock "
+          f"{wall * 1e3:.2f} ms, CUPTI on); " + ", ".join(f"{g} {v:.2f}" for g, v in sorted(by_group.items(),
+                                                                                          key=lambda kv: -kv[1]))
+          + "; top kernels: " + "; ".join(f"{n[:70]} {v:.2f}" for n, v in top), flush=True)
+
+
+def pixels_phase(kernel_modules, smi, fit_latents, fit_mixed, dit_latents):
+    """Phase 9. Returns the launch counts of its main path (the two Trainer
+    runs) and deletes what it wrote under build/."""
+    shutil.rmtree(PIXELS_DIR, ignore_errors=True)
+    PIXELS_DIR.mkdir(parents=True)
+    try:
+        return _pixels_phase(kernel_modules, smi, fit_latents, fit_mixed, dit_latents)
+    finally:
+        shutil.rmtree(PIXELS_DIR, ignore_errors=True)
+
+
+def _pixels_phase(kernel_modules, smi, fit_latents, fit_mixed, dit_latents):
+    from fit_tpu_torch.data.preprocess import preprocess_folder, resize_dims
+    from fit_tpu_torch.models.layers import GeluMlp
+    from fit_tpu_torch.vae import AutoencoderKL
+
+    print(f"phase 9 on: {smi}; TF32 for matmuls {torch.backends.cuda.matmul.allow_tf32}, for cuDNN "
+          f"{torch.backends.cudnn.allow_tf32} (fp32 runs at the fp32 rate)", flush=True)
+    state = seeded_vae_state()
+    vaes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        vaes[dtype] = AutoencoderKL(dtype=dtype, device="cuda").eval()
+        vaes[dtype].load_state_dict(state)
+    del state
+
+    # 9a. decode, bf16 and fp32
+    cases = [
+        ("FiT-XL/2 256^2 (phase 4), batch 8", [fit_latents]),
+        ("FiT-XL/2 four sizes (phase 4), one decode per shape", [lat[None] for lat in fit_mixed]),
+        ("DiT-XL/2 512^2 (phase 7), batch 8", [dit_latents]),
+    ]
+    for name, groups in cases:
+        n = sum(g.shape[0] for g in groups)
+        outs, line = {}, []
+        flops = vae_flops(vaes[torch.float32], lambda: [vaes[torch.float32].decode(g) for g in groups])
+        for dtype, vae in vaes.items():
+            with torch.inference_mode():
+                out, sec, peak = timed_runs(lambda: [vae.decode(g) for g in groups])
+            outs[dtype] = out
+            peak_rate = BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK
+            line.append(f"{str(dtype).split('.')[1]} {sec * 1e3:.2f} ms ({n / sec:.2f} img/s, {flops / sec / 1e12:.1f} "
+                        f"TFLOP/s, bound {flops / peak_rate * 1e3:.2f} ms by operations), peak {peak / 2**30:.2f} GiB")
+        for o, g in zip(outs[torch.float32], groups):
+            want = (g.shape[0], 3, 8 * g.shape[2], 8 * g.shape[3])
+            if tuple(o.shape) != want or not torch.isfinite(o).all():
+                raise AssertionError(f"decode {name}: {tuple(o.shape)}, expected {want}")
+        rel = max(rel_rms(b.float(), f) for b, f in zip(outs[torch.bfloat16], outs[torch.float32]))
+        print(f"vae decode {name}: {flops / 1e12:.3f} TFLOP; " + "; ".join(line)
+              + f"; bf16 vs fp32 rel_rms {rel:.3e} (tol {VAE_REL_RMS:g})", flush=True)
+        if not rel <= VAE_REL_RMS:
+            raise AssertionError(f"the bf16 decode of {name} disagrees with the fp32 one")
+        del outs
+    decode_profile(vaes[torch.bfloat16], fit_latents)
+
+    # 9b. encode, fp32 (preprocessing's dtype), through preprocess_folder
+    imgs, lat_dir = PIXELS_DIR / "imgs", PIXELS_DIR / "latents"
+    shapes = write_image_tree(imgs, ENCODE_IMAGES, seed=9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = preprocess_folder(str(imgs), str(lat_dir), vaes[torch.float32], batch_size=16, progress=False)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    got = {str(Path(p).relative_to(lat_dir)): np.load(p) for p in written}
+    want = {k: (4, resize_dims(w, h)[1] // 8, resize_dims(w, h)[0] // 8) for k, (w, h) in shapes.items()}
+    if {k: v.shape for k, v in got.items()} != want or not all(np.isfinite(v).all() for v in got.values()):
+        raise AssertionError(f"preprocess_folder wrote {sorted((k, v.shape) for k, v in got.items())}")
+    rerun = preprocess_folder(str(imgs), str(lat_dir), vaes[torch.float32], batch_size=16, progress=False)
+    if rerun:
+        raise AssertionError(f"a rerun of preprocess_folder wrote {len(rerun)} latents")
+    batch = np.random.default_rng(1).uniform(-1, 1, size=(16, 3, 256, 256)).astype(np.float32)
+    x = torch.from_numpy(batch).cuda()
+    enc_flops = vae_flops(vaes[torch.float32], lambda: vaes[torch.float32].encode_mode(x))
+    encoded, enc_line = {}, []
+    for dtype, vae in vaes.items():
+        with torch.inference_mode():
+            encoded[dtype], sec, peak = timed_runs(lambda: vae.encode_mode(x))
+        enc_line.append(f"{str(dtype).split('.')[1]} {sec / 16 * 1e3:.3f} ms/image ({enc_flops / sec / 1e12:.1f} "
+                        f"TFLOP/s), peak {peak / 2**30:.2f} GiB")
+    rel_enc = rel_rms(encoded[torch.bfloat16].float(), encoded[torch.float32])
+    print(f"vae encode: preprocess_folder (fp32, batch 16, {len(IMAGE_SIZES)} shapes) {len(written)} images in "
+          f"{pre_s:.3f} s, {pre_s / len(written) * 1e3:.2f} ms/image (PIL load, bicubic resize and .npy writes "
+          f"included); latents resize_dims / 8, a rerun wrote nothing; encode_mode 16 x 256^2 alone, "
+          f"{enc_flops / 16 / 1e12:.3f} TFLOP/image: " + "; ".join(enc_line)
+          + f"; bf16 vs fp32 rel_rms {rel_enc:.3e} (tol {VAE_REL_RMS:g})", flush=True)
+    if not rel_enc <= VAE_REL_RMS:
+        raise AssertionError("the bf16 encode disagrees with the fp32 one")
+    del vaes, encoded, x
+    torch.cuda.empty_cache()
+
+    # 9c. the Trainer on exactly those latents
+    counts, secs, losses, trainer = train_run(kernel_modules, PIXELS_DIR, "from_pixels", lat_dir, PIXEL_BATCH,
+                                              PIXEL_ACCUM, PIXEL_STEPS)
+    del trainer
+    gc.collect()
+    totals = dict(counts)
+    print(f"trainer on the preprocessed latents: FiT-B/2 bf16, global batch {PIXEL_BATCH} = {PIXEL_ACCUM} x "
+          f"{PIXEL_BATCH // PIXEL_ACCUM}, {PIXEL_STEPS} steps: loss {', '.join(f'{v:.6f}' for v in losses)}; step 2 "
+          f"{secs[0] * 1e3:.2f} ms; launches {counts}", flush=True)
+
+    # 9d. ffn="mlp" on phase 6's synthetic latents, then a learn_sigma loss
+    write_train_latents(PIXELS_DIR / "train_latents")
+    torch.cuda.reset_peak_memory_stats()
+    counts, secs, losses, trainer = train_run(kernel_modules, PIXELS_DIR, "mlp", PIXELS_DIR / "train_latents",
+                                              TRAIN_BATCH, TRAIN_ACCUM, MLP_STEPS, ffn="mlp")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(isinstance(blk.ffn, GeluMlp) for blk in trainer.model.blocks):
+        raise AssertionError("the ffn='mlp' Trainer built other blocks")
+    del trainer
+    gc.collect()
+    for k, v in counts.items():
+        totals[k] += v
+    step_s = float(np.median(secs))
+    print(f"trainer ffn=mlp: FiT-B/2 bf16 256^2 pad packing, global batch {TRAIN_BATCH} = {TRAIN_ACCUM} x "
+          f"{TRAIN_BATCH // TRAIN_ACCUM}, remat: {step_s * 1e3:.2f} ms per optimizer step (median of steps 2-"
+          f"{MLP_STEPS}: {', '.join(f'{x * 1e3:.2f}' for x in secs)}), {TRAIN_BATCH / step_s:.2f} img/s, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; loss {', '.join(f'{v:.6f}' for v in losses)}; launches "
+          f"{counts}", flush=True)
+    torch.cuda.empty_cache()
+    learn_sigma_check(kernel_modules)
     return totals
 
 
@@ -1519,7 +2048,7 @@ def main() -> None:
         for dtype in (torch.bfloat16, torch.float32):
             strided[(i, dtype)] = strided_case(ra, attn, rope_freqs_2d, name, layout, h, d, t, lengths, dtype, 200 + i)
     torch.cuda.empty_cache()
-    dit_launches = dit_phase(kernel_modules)
+    dit_launches, dit_latents = dit_phase(kernel_modules)
     torch.cuda.empty_cache()
     fit_absolute_check(sampler_mod)
     k1_now = {
@@ -1542,6 +2071,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_totals = cli_phase(kernel_modules, smi, step_ms)
 
+    # 9. pixels: the SD-VAE decodes phases 4 and 7's latents and encodes
+    # images for the Trainer; the Trainer's ffn="mlp" and learn_sigma loss
+    torch.cuda.empty_cache()
+    pixel_launches = pixels_phase(kernel_modules, smi, latents, mixed, dit_latents)
+
     def strided_entry(name, replaces, main_case):
         main = strided[(main_case, torch.bfloat16)]
         err = max(r["max_abs_err"] for (i, _), r in strided.items() if STRIDED_CASES[i][0] == name)
@@ -1550,7 +2084,7 @@ def main() -> None:
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, bound_by, library_ms=None, sample_count=0):
         by_path = {"sample": sample_count, "serve": serve_launches[name], "train": train_launches[name],
-                   "dit": dit_launches[name], "cli": cli_totals[name]}
+                   "dit": dit_launches[name], "cli": cli_totals[name], "pixels": pixel_launches[name]}
         return {
             "name": name,
             "route": "cuda",

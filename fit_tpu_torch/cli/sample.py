@@ -1,8 +1,8 @@
-"""Sampling command line, with ``fit_tpu``'s flags (less the VAE's) and
-``--device``.
+"""Sampling command line, with ``fit_tpu``'s flags and ``--device``.
 
     python -m fit_tpu_torch.cli.sample --checkpoint-path results/checkpoints \\
-        --num-samples 50000 --num-sampling-steps 250 --cfg-scale 1.5 [--sampler dpm]
+        --num-samples 50000 --num-sampling-steps 250 --cfg-scale 1.5 [--sampler dpm] \\
+        [--vae-checkpoint sd-vae-ft-ema.bin]
     python -m fit_tpu_torch.cli.sample --torch-checkpoint last.ckpt --model FiT-XL/2 ...
 
 Loads a model from one of three sources (:func:`load_model_and_params`):
@@ -11,9 +11,13 @@ checkpoint, or an int8 artifact of ``fit_tpu_torch.cli.quantize``;
 optionally quantizes it to int8 (``--quant int8``, with SmoothQuant on N
 synthetic batches by ``--quant-equalize N``), then samples class-conditional
 latents batch by batch, or packed over mixed sizes (``--image-sizes``), and
-writes each as ``latent_{idx}_{label}.npy`` (fp16). The ``config.json``
+writes each as ``latent_{idx}_{label}.npy`` (fp16). With
+``--vae-checkpoint`` (a diffusers sd-vae file, or a directory holding
+``sd-vae-ft-{vae}.bin``) it decodes them instead, one batched decode per
+batch (one per sample when packed), in ``--dtype``, and writes
+``generated_image_{idx}_{label}.png`` (needs PIL). The ``config.json``
 beside the checkpoint supplies the fields not given as flags. Runs on the
-card unless ``--device cpu``; PNG output waits for the VAE.
+card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ import torch
 from fit_tpu_torch.models.fit import FiT, create_fit
 from fit_tpu_torch.utils.config import SampleConfig, add_dataclass_args, from_args
 from fit_tpu_torch.utils.device import resolve_device
+from fit_tpu_torch.vae.model import to_uint8
 
-__all__ = ["load_model_and_params", "batch_draws", "parse_sizes", "find_config", "read_config", "main"]
+__all__ = ["load_model_and_params", "batch_draws", "parse_sizes", "find_config", "read_config", "save_png", "main"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -141,10 +146,19 @@ def batch_draws(global_seed: int, batch: int, n: int, num_classes: int, device) 
     return labels.tolist(), torch.Generator(torch.device(device)).manual_seed(seed)
 
 
+def save_png(path: str, image: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image as a PNG (PIL)."""
+    from PIL import Image
+
+    Image.fromarray(image).save(path)
+
+
 def main(argv=None) -> dict:
     """Run the command line. Returns what it sampled: ``latents`` (each
-    (C, h, w) fp32, in sample order), ``labels``, and ``seconds``, each
-    batch's sampling time on the host clock, ending with its read-back."""
+    (C, h, w) fp32, in sample order), ``labels``, ``seconds``, each batch's
+    sampling time on the host clock, ending with its read-back, and with a
+    VAE ``images``, each (H, W, 3) uint8 as written, and ``decode_seconds``,
+    each batch's decode time on the host clock, ending with its read-back."""
     parser = argparse.ArgumentParser(description="Sample from a trained FiT with fit_tpu_torch")
     parser.add_argument("--torch-checkpoint", type=str, default=None,
                         help="sample from a reference (PyTorch Lightning) FiT checkpoint")
@@ -152,6 +166,8 @@ def main(argv=None) -> dict:
                         help="int8: the w8a8 path for the block projections (fit_tpu_torch.ops.quant)")
     parser.add_argument("--quant-equalize", type=int, default=0, metavar="N",
                         help="with --quant int8: SmoothQuant on N synthetic calibration batches first")
+    parser.add_argument("--vae-checkpoint", type=str, default=None,
+                        help="a diffusers sd-vae checkpoint (file, or directory resolved by --vae): write PNGs")
     args, cfg = read_config(parser, argv)
 
     from fit_tpu_torch.sampling import FiTSampler
@@ -164,29 +180,50 @@ def main(argv=None) -> dict:
         model, num_sampling_steps=cfg.num_sampling_steps, cfg_scale=cfg.cfg_scale, sampler=cfg.sampler,
         num_classes=cfg.num_classes, device=args.device,
     )
+    vae = None
+    if args.vae_checkpoint:
+        from fit_tpu_torch.vae import load_autoencoder
+
+        vae = load_autoencoder(args.vae_checkpoint, cfg.vae, dtype=DTYPES[cfg.dtype], device=args.device)
     os.makedirs(cfg.output_dir, exist_ok=True)
     mixed = parse_sizes(cfg.image_sizes) if cfg.image_sizes else None
     num_batches = math.ceil(cfg.num_samples / cfg.batch_size)
     result = {"latents": [], "labels": [], "seconds": []}
+    if vae is not None:
+        result.update(images=[], decode_seconds=[])
     for b in range(num_batches):
         n = min(cfg.batch_size, cfg.num_samples - b * cfg.batch_size)
         labels, generator = batch_draws(cfg.global_seed, b, n, cfg.num_classes, sampler.device)
         t0 = time.perf_counter()
         if mixed is not None:
             sizes = [mixed[(b * cfg.batch_size + i) % len(mixed)] for i in range(n)]
-            latents = [lat.cpu().numpy() for lat in sampler.sample_mixed(labels, sizes, generator=generator)]
+            on_card = sampler.sample_mixed(labels, sizes, generator=generator)
+            latents = [lat.cpu().numpy() for lat in on_card]
         else:
-            latents = list(sampler.sample(labels, cfg.image_height, cfg.image_width, generator=generator).cpu().numpy())
+            on_card = sampler.sample(labels, cfg.image_height, cfg.image_width, generator=generator)
+            latents = list(on_card.cpu().numpy())
         seconds = time.perf_counter() - t0
-        for i, (label, lat) in enumerate(zip(labels, latents)):
-            idx = b * cfg.batch_size + i
-            np.save(os.path.join(cfg.output_dir, f"latent_{idx}_{label}.npy"), lat.astype(np.float16))
+        if vae is None:
+            for i, (label, lat) in enumerate(zip(labels, latents)):
+                idx = b * cfg.batch_size + i
+                np.save(os.path.join(cfg.output_dir, f"latent_{idx}_{label}.npy"), lat.astype(np.float16))
+        else:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                if mixed is not None:  # one decode per sample, each at its own size
+                    images = [to_uint8(vae.decode(lat[None]))[0] for lat in on_card]
+                else:  # one batched decode
+                    images = list(to_uint8(vae.decode(on_card)))
+            result["decode_seconds"].append(time.perf_counter() - t0)
+            for i, (label, image) in enumerate(zip(labels, images)):
+                save_png(os.path.join(cfg.output_dir, f"generated_image_{b * cfg.batch_size + i}_{label}.png"), image)
+            result["images"] += images
         result["latents"] += latents
         result["labels"] += labels
         result["seconds"].append(seconds)
         print(f"batch {b + 1}/{num_batches}: {n} samples in {seconds:.3f} s "
               f"({seconds / cfg.num_sampling_steps * 1e3:.2f} ms a step)", flush=True)
-    print(f"Wrote {cfg.num_samples} latents to {cfg.output_dir}")
+    print(f"Wrote {cfg.num_samples} {'images' if vae is not None else 'latents'} to {cfg.output_dir}")
     return result
 
 

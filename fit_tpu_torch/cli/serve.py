@@ -1,20 +1,23 @@
 """Serving command line: an HTTP front end over
-:class:`fit_tpu_torch.serve.SamplingServer`, with ``fit_tpu``'s flags (less
-the VAE's) and ``--device``.
+:class:`fit_tpu_torch.serve.SamplingServer`, with ``fit_tpu``'s flags,
+``--vae-checkpoint`` and ``--device``.
 
     python -m fit_tpu_torch.cli.serve --checkpoint-path results/quantized \
         --port 8000 --serve-batch-size 8 --num-sampling-steps 50 [--sampler dpm] \
-        [--torch-checkpoint last.ckpt] [--quant int8] [--device cuda]
+        [--torch-checkpoint last.ckpt] [--quant int8] [--vae-checkpoint vae_dir/] [--device cuda]
 
 It loads the model as ``fit_tpu_torch.cli.sample`` does, runs one warm-up
 batch (unless ``--no-warmup``), prints ``listening on http://HOST:PORT``
 (``--port 0`` takes a free port) and serves until SIGINT, then stops
-taking connections, serves what it accepted and exits 0.
+taking connections, serves what it accepted, prints its stats and each
+kernel's launch count (warm-up included) and exits 0.
 
   POST /sample   body {"label": 3, "height": 256, "width": 256, "seed": 7,
                  "deadline_s": 30}
-                 -> 200, .npy bytes of the (C, h, w) float32 latent; a seed
-                 reproduces the result under "ddim" and "dpm".
+                 -> 200, .npy bytes of the (C, h, w) float32 latent, or with
+                 --vae-checkpoint an image/png of height x width (decoded
+                 on the card); a seed reproduces the result under "ddim"
+                 and "dpm".
                  400 for a bad request, 429 (+ Retry-After) when the bounded
                  queue is full, 504 when deadline_s passed before dispatch,
                  500 when the batch failed.
@@ -22,7 +25,9 @@ taking connections, serves what it accepted and exits 0.
                  rejected and expired counts, latency percentiles
   GET  /healthz  -> 200 {"status": "ok"}
 
-PNG responses wait for the VAE.
+``--vae-checkpoint`` is a diffusers ``AutoencoderKL`` file, or a directory
+holding ``sd-vae-ft-{vae}.bin`` (``--vae ema|mse``); the VAE computes in
+``--dtype``. PNG bodies need PIL.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from fit_tpu_torch.ops import launch_counts
 from fit_tpu_torch.serve import DeadlineExceeded, SamplingServer, ServerOverloaded
 
 __all__ = ["make_handler", "build", "main"]
@@ -99,8 +105,14 @@ def make_handler(server):
                 self._json(500, {"error": str(exc)})
                 return
             buf = io.BytesIO()
-            np.save(buf, result)
-            self._send(200, buf.getvalue(), "application/octet-stream")
+            if result.dtype == np.uint8:  # a decoded (H, W, 3) image
+                from PIL import Image
+
+                Image.fromarray(result).save(buf, format="PNG")
+                self._send(200, buf.getvalue(), "image/png")
+            else:
+                np.save(buf, result)
+                self._send(200, buf.getvalue(), "application/octet-stream")
 
     return Handler
 
@@ -109,13 +121,15 @@ def build(argv=None):
     """Parse the flags, load the model, start the :class:`SamplingServer`
     (warmed up unless ``--no-warmup``) and bind the HTTP server, without
     serving yet. Returns ``(httpd, server)``."""
-    from fit_tpu_torch.cli.sample import load_model_and_params, read_config
+    from fit_tpu_torch.cli.sample import DTYPES, load_model_and_params, read_config
 
     parser = argparse.ArgumentParser(description="Serve a trained FiT over HTTP with fit_tpu_torch")
     parser.add_argument("--torch-checkpoint", type=str, default=None,
                         help="serve a reference (PyTorch Lightning) FiT checkpoint")
     parser.add_argument("--quant", choices=["none", "int8"], default="none",
                         help="int8: the w8a8 path (fit_tpu_torch.ops.quant)")
+    parser.add_argument("--vae-checkpoint", type=str, default=None,
+                        help="a diffusers sd-vae checkpoint (file, or directory resolved by --vae): serve PNGs")
     parser.add_argument("--port", type=int, default=8000, help="0 takes a free port")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--serve-batch-size", type=int, default=8,
@@ -129,10 +143,16 @@ def build(argv=None):
     args, cfg = read_config(parser, argv)
 
     model = load_model_and_params(cfg, torch_checkpoint=args.torch_checkpoint, quant=args.quant, device=args.device)
+    vae = None
+    if args.vae_checkpoint:
+        from fit_tpu_torch.vae import load_autoencoder
+
+        vae = load_autoencoder(args.vae_checkpoint, cfg.vae, dtype=DTYPES[cfg.dtype], device=args.device)
+        print(f"[serve] decoding with the VAE of {args.vae_checkpoint}; /sample returns PNG", flush=True)
     server = SamplingServer(
         model, batch_size=args.serve_batch_size, max_batch_wait_s=args.max_batch_wait_s,
         max_queue=args.max_queue, num_sampling_steps=cfg.num_sampling_steps, cfg_scale=cfg.cfg_scale,
-        sampler=cfg.sampler, num_classes=cfg.num_classes, device=args.device,
+        sampler=cfg.sampler, num_classes=cfg.num_classes, device=args.device, vae=vae,
     )
     try:
         if not args.no_warmup:
@@ -161,6 +181,7 @@ def main(argv=None) -> int:
         httpd.server_close()
         server.close(drain=True)
     print(f"[serve] stopped: {json.dumps(server.stats())}", flush=True)
+    print(f"[serve] kernel launches: {json.dumps(launch_counts())}", flush=True)
     return 0
 
 

@@ -4,9 +4,12 @@ Counterpart of ``fit_tpu/diffusion/gaussian.py``: eps or (``predict_xstart``)
 x0 prediction with FIXED_LARGE, (``sigma_small``) FIXED_SMALL or
 (``learn_sigma``) LEARNED_RANGE variance over any named noise schedule;
 DDPM, DDIM and reverse-DDIM steps with the ``denoised_fn`` and ``cond_fn``
-hooks; timestep respacing; the forward process ``q_sample`` and the masked
-MSE training loss. The VLB terms (the loss of ``learn_sigma`` training,
-``use_kl``, ``rescale_learned_sigmas``) are not ported. The coefficient tables
+hooks; timestep respacing; the forward process ``q_sample``; the training
+losses of every ``LossType``: the masked MSE, the variational-bound term
+``vb`` that ``learn_sigma`` training adds (``RESCALED_MSE`` with
+``rescale_learned_sigmas``), and the pure VLB loss (``RESCALED_KL`` with
+``use_kl``); and the bits-per-dim metrics ``prior_bpd`` and
+``calc_bpd_loop``. The coefficient tables
 are float64 numpy; a step indexes a table and rounds the value to float32,
 as ``fit_tpu`` does. Each table is copied to a device once and indexed
 there, so a sampling loop makes no host round trip.
@@ -14,6 +17,8 @@ there, so a sampling loop makes no host round trip.
 
 from __future__ import annotations
 
+import enum
+import math
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -27,14 +32,62 @@ from fit_tpu_torch.core.schedules import (
 )
 
 __all__ = [
+    "LossType",
     "GaussianDiffusion",
     "create_diffusion",
     "mean_flat",
     "masked_mean_flat",
     "masked_global_mse",
+    "normal_kl",
+    "approx_standard_normal_cdf",
+    "continuous_gaussian_log_likelihood",
+    "discretized_gaussian_log_likelihood",
 ]
 
 ModelFn = Callable[..., torch.Tensor]
+
+
+class LossType(enum.Enum):
+    MSE = enum.auto()
+    RESCALED_MSE = enum.auto()  # the MSE, plus the vb term scaled by num_timesteps / 1000
+    KL = enum.auto()  # the variational bound alone
+    RESCALED_KL = enum.auto()  # the variational bound times num_timesteps
+
+    def is_vb(self) -> bool:
+        return self in (LossType.KL, LossType.RESCALED_KL)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
+    """KL(N(mean1, exp(logvar1)) || N(mean2, exp(logvar2))) elementwise, in
+    nats; any argument may be a float, the others broadcast."""
+    ref = next(x for x in (mean1, logvar1, mean2, logvar2) if isinstance(x, torch.Tensor))
+    logvar1, logvar2 = (torch.as_tensor(v, dtype=ref.dtype, device=ref.device) for v in (logvar1, logvar2))
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2) + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    """The standard normal CDF by its tanh approximation."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def continuous_gaussian_log_likelihood(x: torch.Tensor, *, means, log_scales) -> torch.Tensor:
+    """The log density of ``x`` under N(means, exp(log_scales)^2) at the
+    standardized point, in nats (``fit_tpu``'s formula)."""
+    normalized = (x - means) * torch.exp(-log_scales)
+    return -0.5 * (normalized**2 + math.log(2 * math.pi))
+
+
+def discretized_gaussian_log_likelihood(x: torch.Tensor, *, means, log_scales) -> torch.Tensor:
+    """Log-likelihood of ``x`` (uint8 levels rescaled to [-1, 1]) under a
+    Gaussian discretized to the 256 bins, the outer bins open-ended."""
+    centered = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus, torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
 
 
 def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -80,7 +133,8 @@ class GaussianDiffusion:
     ``timestep_map`` maps local step indices to the base process's
     timesteps, which the model was trained on (``None``: not respaced).
     ``original_num_steps`` is the base process's length (the range training
-    draws timesteps from).
+    draws timesteps from). ``loss_type`` chooses the training loss
+    (:class:`LossType`).
     """
 
     def __init__(
@@ -92,8 +146,10 @@ class GaussianDiffusion:
         *,
         predict_xstart: bool = False,
         sigma_small: bool = False,
+        loss_type: LossType = LossType.MSE,
     ):
         self.betas = np.asarray(betas, dtype=np.float64)
+        self.loss_type = loss_type
         self.learn_sigma = learn_sigma
         self.predict_xstart = predict_xstart
         self.sigma_small = sigma_small
@@ -148,16 +204,84 @@ class GaussianDiffusion:
         )
 
     def training_losses(self, model_fn: ModelFn, x_start, t, noise, mask=None) -> dict:
-        """Training loss terms of the MSE objective: ``mse`` (and ``loss``)
-        are per-sample means of the squared error against eps (x0 with
-        ``predict_xstart``) over the valid tokens (``mask`` (N, T)). The VLB
-        term of ``learn_sigma`` is not ported and raises."""
-        if self.learn_sigma:
-            raise NotImplementedError("the VLB loss of learn_sigma training is not ported")
+        """Training loss terms, per sample, over the valid tokens (``mask``
+        (N, T)). ``mse``: the squared error against eps (x0 with
+        ``predict_xstart``). With ``learn_sigma`` the output's second half
+        of axis 1 is the variance, learned through ``vb``, the
+        variational-bound term, which reaches the model through the variance
+        half only (the mean half is detached there). ``loss`` is ``mse``
+        plus ``vb``, or under a KL loss type the bound alone."""
         x_t = self.q_sample(x_start, t, noise)
+        terms = {}
+        if self.loss_type.is_vb():
+            terms["loss"] = self.vb_terms_bpd(model_fn, x_start, x_t, t, clip_denoised=False, mask=mask)["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+        model_output = model_fn(x_t, t)
+        if self.learn_sigma:
+            model_output, var_values = model_output.chunk(2, dim=1)
+            frozen = torch.cat([model_output.detach(), var_values], dim=1)
+            terms["vb"] = self.vb_terms_bpd(
+                lambda *_args: frozen, x_start, x_t, t, clip_denoised=False, mask=mask
+            )["output"]
+            if self.loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
         target = x_start if self.predict_xstart else noise
-        mse = masked_mean_flat((target - model_fn(x_t, t)) ** 2, mask)
-        return {"mse": mse, "loss": mse}
+        terms["mse"] = masked_mean_flat((target - model_output) ** 2, mask)
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+        return terms
+
+    def vb_terms_bpd(self, model_fn: ModelFn, x_start, x_t, t, clip_denoised: bool = True, mask=None) -> dict:
+        """The variational bound's term at t, in bits per dimension, per
+        sample over the valid tokens: the KL of the model's p(x_{t-1} | x_t)
+        from the posterior q(x_{t-1} | x_t, x_0), or at t = 0 the decoder's
+        negative log-likelihood of x_0. Returns ``output`` and
+        ``pred_xstart``."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t, clip_denoised)
+        kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+        kl = masked_mean_flat(kl, mask) / math.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"]
+        )
+        decoder_nll = masked_mean_flat(decoder_nll, mask) / math.log(2.0)
+        return {"output": torch.where(t == 0, decoder_nll, kl), "pred_xstart": out["pred_xstart"]}
+
+    def prior_bpd(self, x_start) -> torch.Tensor:
+        """KL(q(x_T | x_0) || N(0, I)) per sample, in bits per dimension."""
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1, dtype=torch.long, device=x_start.device)
+        qt_mean, _, qt_log_var = self.q_mean_variance(x_start, t)
+        return mean_flat(normal_kl(qt_mean, qt_log_var, 0.0, 0.0)) / math.log(2.0)
+
+    def calc_bpd_loop(
+        self, model_fn: ModelFn, x_start, generator: Optional[torch.Generator] = None, clip_denoised: bool = True,
+        noise=None,
+    ) -> dict:
+        """The whole variational bound of ``x_start``, over every timestep
+        from the last to 0. Each step's noise is ``noise[t]`` when ``noise``
+        (indexed by timestep, each of ``x_start``'s shape) is given, else a
+        draw from ``generator`` on ``x_start``'s device. Returns per sample
+        ``total_bpd`` and ``prior_bpd``, and per sample and step (columns in
+        descending t) ``vb``, ``xstart_mse`` and ``mse`` (of eps)."""
+        model_fn = self.wrap_model(model_fn)
+        n = x_start.shape[0]
+        vb, xstart_mse, mse = [], [], []
+        for ti in range(self.num_timesteps - 1, -1, -1):
+            if noise is not None:
+                eps = torch.as_tensor(noise[ti], device=x_start.device)
+            else:
+                eps = torch.randn(x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype)
+            t_b = torch.full((n,), ti, dtype=torch.long, device=x_start.device)
+            x_t = self.q_sample(x_start, t_b, eps)
+            out = self.vb_terms_bpd(model_fn, x_start, x_t, t_b, clip_denoised)
+            pred_eps = self._predict_eps_from_xstart(x_t, t_b, out["pred_xstart"])
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            mse.append(mean_flat((pred_eps - eps) ** 2))
+        vb, xstart_mse, mse = (torch.stack(a, dim=1) for a in (vb, xstart_mse, mse))
+        prior = self.prior_bpd(x_start)
+        return {"total_bpd": vb.sum(dim=1) + prior, "prior_bpd": prior, "vb": vb, "xstart_mse": xstart_mse, "mse": mse}
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
         mean = (
@@ -302,13 +426,14 @@ def create_diffusion(
 ) -> GaussianDiffusion:
     """``fit_tpu``'s factory and defaults: ``noise_schedule`` betas over
     ``diffusion_steps`` base steps, eps prediction, FIXED_LARGE variance,
-    respaced to ``timestep_respacing``. ``use_kl`` and
-    ``rescale_learned_sigmas`` choose VLB losses, which are not ported
-    (ROADMAP Queue 1, item 4) and raise."""
-    if use_kl or rescale_learned_sigmas:
-        raise NotImplementedError(
-            "use_kl and rescale_learned_sigmas select the VLB losses, not ported yet (ROADMAP Queue 1, item 4)"
-        )
+    the MSE loss, respaced to ``timestep_respacing``. ``use_kl`` selects
+    the RESCALED_KL loss, else ``rescale_learned_sigmas`` RESCALED_MSE."""
+    if use_kl:
+        loss_type = LossType.RESCALED_KL
+    elif rescale_learned_sigmas:
+        loss_type = LossType.RESCALED_MSE
+    else:
+        loss_type = LossType.MSE
     betas = named_beta_schedule(noise_schedule, diffusion_steps)
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
@@ -321,4 +446,5 @@ def create_diffusion(
         original_num_steps=diffusion_steps,
         predict_xstart=predict_xstart,
         sigma_small=sigma_small,
+        loss_type=loss_type,
     )

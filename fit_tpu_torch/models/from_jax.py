@@ -13,6 +13,11 @@ kernels stay int8 and each ``kernel_scale`` stays fp32, the grouped qkv
 scale ``(3, C)`` flattened to ``(3C,)``. The tree must hold numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module never imports jax.
 
+:func:`torch_vae_state_dict_from_flax` carries a ``fit_tpu`` VAE tree
+(``fit_tpu.vae.AutoencoderKL``) into ``fit_tpu_torch.vae.AutoencoderKL``:
+Conv kernels ``(kH, kW, I, O)`` become ``(O, I, kH, kW)``, Dense kernels
+``(I, O)`` their transpose, GroupNorm ``scale`` the ``weight``.
+
 :func:`torch_train_state_from_flax` carries a whole ``fit_tpu`` train
 state (params, EMA shadow, and the Adam moments and count of its optax
 AdamW or stochastic-rounding Adam) into the port's model, EMA and
@@ -29,7 +34,7 @@ from torch import nn
 
 from fit_tpu_torch.train.state import AdamSR, TrainState, create_train_state
 
-__all__ = ["torch_state_dict_from_flax", "torch_train_state_from_flax"]
+__all__ = ["torch_state_dict_from_flax", "torch_train_state_from_flax", "torch_vae_state_dict_from_flax"]
 
 
 def _leaf_entries(prefix: str, node: Mapping) -> Dict[str, np.ndarray]:
@@ -70,6 +75,29 @@ def _port_dtype(v: np.ndarray) -> np.ndarray:
     """int8 kernels stay int8; every float leaf becomes a contiguous fp32 copy."""
     v = np.asarray(v)
     return np.array(v, dtype=np.int8 if v.dtype == np.int8 else np.float32)
+
+
+def torch_vae_state_dict_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """``fit_tpu`` AutoencoderKL params (numpy leaves, with or without the
+    outer ``"params"`` key) -> the port's ``AutoencoderKL.state_dict()``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node: Mapping) -> None:
+        for name, child in node.items():
+            key = f"{prefix}.{name}" if prefix else name
+            if isinstance(child, Mapping):
+                walk(key, child)
+                continue
+            value = np.asarray(child, dtype=np.float32)
+            if name == "kernel":
+                value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+                key = f"{prefix}.weight"
+            elif name == "scale":
+                key = f"{prefix}.weight"
+            out[key] = torch.from_numpy(np.array(value))  # a contiguous, writable copy
+
+    walk("", params_np.get("params", params_np))
+    return out
 
 
 def _index_tree(node: Mapping, i: int):

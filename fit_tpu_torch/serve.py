@@ -1,7 +1,6 @@
 """Batch-serving layer: static-shape packed batching over :class:`FiTSampler`.
 
-Counterpart of ``fit_tpu/serve.py`` (without the VAE decode, which waits for
-the VAE's port):
+Counterpart of ``fit_tpu/serve.py``:
 
 * **One static shape.** Every dispatched batch has exactly ``batch_size``
   slots on the shared square canvas (the ``max_length`` token budget); short
@@ -28,6 +27,14 @@ the VAE's port):
   (:class:`ServerOverloaded`, HTTP 429); a request whose deadline passes
   while queued fails with :class:`DeadlineExceeded` (HTTP 504) and never
   takes a slot; one that expires after dispatch completes and is counted.
+* **Pixels.** With a ``vae`` (``fit_tpu_torch.vae.AutoencoderKL``) the
+  worker decodes each batch on the card right after enqueueing its
+  sampling, one batched decode per distinct latent shape, and futures
+  resolve to (H, W, 3) uint8 images instead of latents. Each decode is
+  padded to ``batch_size`` with copies of its last latent: cuDNN picks its
+  convolution algorithm by batch size, and another algorithm rounds bf16
+  differently, so a static decode shape keeps a seeded request's pixels,
+  like its latent, independent of what shares its batch.
 
 A worker thread and a queue here, and a stdlib HTTP front end in
 ``fit_tpu_torch.cli.serve``.
@@ -48,6 +55,7 @@ import torch
 from fit_tpu_torch.core.geometry import token_count
 from fit_tpu_torch.models.fit import FiT
 from fit_tpu_torch.sampling import FiTSampler
+from fit_tpu_torch.vae.model import to_uint8
 
 __all__ = ["SamplingServer", "ServerOverloaded", "DeadlineExceeded"]
 
@@ -80,9 +88,10 @@ class SamplingServer:
     """Queue + worker-thread batching front end over :class:`FiTSampler`.
 
     ``submit`` returns a ``concurrent.futures.Future`` that resolves to the
-    (C, h, w) float32 latent of one request, as a numpy array. The model is
-    moved to ``device`` (the card unless the caller names another) and cast
-    once by the sampler.
+    (C, h, w) float32 latent of one request, as a numpy array, or with a
+    ``vae`` to its decoded (H, W, 3) uint8 image. The model is moved to
+    ``device`` (the card unless the caller names another) and cast once by
+    the sampler; the VAE stays where it is.
     """
 
     def __init__(
@@ -99,6 +108,7 @@ class SamplingServer:
         max_length: int = 256,
         max_queue: Optional[int] = None,
         device="cuda",
+        vae=None,
     ):
         self.sampler = FiTSampler(
             model,
@@ -132,6 +142,7 @@ class SamplingServer:
         self._latencies: List[float] = []
         self._batch_counter = 0
         self._nprng = np.random.default_rng(0)
+        self.vae = vae
         self._thread = threading.Thread(target=self._worker, name="fit-serve-worker", daemon=True)
         self._thread.start()
 
@@ -272,7 +283,21 @@ class SamplingServer:
                 self._batch_counter += 1
                 counter = self._batch_counter
             generator = torch.Generator(self.device).manual_seed(counter)
-            return self.sampler.sample_mixed(labels, sizes, generator=generator, z=z)
+            latents = self.sampler.sample_mixed(labels, sizes, generator=generator, z=z)
+            if self.vae is None:
+                return latents
+            # one batched decode per latent shape, padded to the static batch
+            # size and enqueued behind the sampling
+            groups = {}
+            for i in range(len(batch)):
+                groups.setdefault(tuple(latents[i].shape), []).append(i)
+            out = list(latents)
+            for idxs in groups.values():
+                padded_idxs = idxs + [idxs[-1]] * (self.batch_size - len(idxs))
+                images = self.vae.decode(torch.stack([latents[i] for i in padded_idxs]))
+                for j, i in enumerate(idxs):
+                    out[i] = images[j]
+            return out
         except Exception as exc:  # noqa: BLE001 — the batch's futures carry it
             for req in batch:
                 if not req.future.done():
@@ -283,7 +308,10 @@ class SamplingServer:
         """Read a launched batch back to the host and resolve its futures."""
         n = len(batch)
         try:
-            host = [np.array(lat.cpu(), dtype=np.float32) for lat in latents[:n]]
+            if self.vae is None:
+                host = [np.array(lat.cpu(), dtype=np.float32) for lat in latents[:n]]
+            else:  # (3, H, W) in [-1, 1] -> (H, W, 3) uint8
+                host = [to_uint8(img) for img in latents[:n]]
             now = time.monotonic()
             # a dispatched request always completes (its slot cannot be taken
             # back mid-denoise); count those that resolve past their deadline

@@ -10,9 +10,9 @@ importance sampler's numpy stream on the host, so a resumed run replays
 neither data nor noise.
 
 Not run here, and raised on: tensor, sequence, pipeline and expert
-parallelism (tp, sp, pp, ep > 1), fsdp, and FFN flavours other than
-"swiglu". ``scan_blocks`` only changes a ``fit_tpu`` checkpoint's layout
-and is accepted. On the card ``attn_backend`` must be "auto" or "fused"
+parallelism (tp, sp, pp, ep > 1), fsdp, and the MoE FFN. The blocks' FFN
+is SwiGLU or (``ffn="mlp"``) the tanh-GELU MLP. ``scan_blocks`` only
+changes a ``fit_tpu`` checkpoint's layout and is accepted. On the card ``attn_backend`` must be "auto" or "fused"
 (the CUDA kernels); nothing routes to the plain attention there.
 """
 
@@ -51,10 +51,14 @@ def _check_supported(cfg: TrainConfig, device: torch.device) -> None:
     queued = [f"{k}={getattr(cfg, k)}" for k in ("tp", "sp", "pp", "ep") if getattr(cfg, k) > 1]
     if cfg.fsdp:
         queued.append("fsdp")
-    if cfg.ffn != "swiglu":
-        queued.append(f"ffn={cfg.ffn!r}")
     if queued:
-        raise NotImplementedError(f"the port's Trainer runs one card with SwiGLU blocks; not ported: {', '.join(queued)}")
+        raise NotImplementedError(
+            f"the port's Trainer runs one card; not ported: {', '.join(queued)} (ROADMAP Queue 1, item 10)"
+        )
+    if cfg.ffn == "moe":
+        raise NotImplementedError("ffn='moe' is not ported (ROADMAP Queue 1, item 9)")
+    if cfg.ffn not in ("swiglu", "mlp"):
+        raise ValueError(f"unknown ffn {cfg.ffn!r}: use 'swiglu' or 'mlp'")
     if cfg.packing not in ("pad", "bucket"):
         raise ValueError(f"unknown packing {cfg.packing!r}: use 'pad' or 'bucket'")
     if device.type == "cuda" and cfg.attn_backend not in ("auto", "fused"):
@@ -75,7 +79,7 @@ class Trainer:
         remat = cfg.remat if cfg.remat is not None else cfg.packing == "pad"
         self.model = create_fit(
             cfg.model, num_classes=cfg.num_classes, in_channels=cfg.channels, dtype=dtype, remat=remat,
-            device=self.device, generator=torch.Generator(self.device).manual_seed(cfg.global_seed),
+            ffn=cfg.ffn, device=self.device, generator=torch.Generator(self.device).manual_seed(cfg.global_seed),
         )
         self.head_dim = self.model.head_dim
         self.diffusion = create_diffusion(None)  # the 1000-step training process

@@ -4,9 +4,10 @@ Counterpart of ``TrainConfig``, ``SampleConfig``, ``add_dataclass_args`` and
 ``from_args`` of ``fit_tpu/utils/config.py``: dataclasses whose fields load
 from JSON and are exposed as argparse flags (``--model``,
 ``--global-batch-size``, ...).
-The parallelism fields (tp, fsdp, sp, pp, ep) and the FFN flavours other
-than "swiglu" are kept so that a ``fit_tpu`` config loads as it is; the
-port's Trainer raises on the ones it does not run.
+The parallelism fields (tp, fsdp, sp, pp, ep) and the MoE FFN's are kept
+so that a ``fit_tpu`` config loads as it is; the port's Trainer raises on
+the ones it does not run. ``PreprocessConfig`` is what
+``fit_tpu_torch.cli.preprocess`` reads.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import dataclasses
 import json
 from typing import Optional, Tuple
 
-__all__ = ["TrainConfig", "SampleConfig", "add_dataclass_args", "from_args"]
+__all__ = ["TrainConfig", "SampleConfig", "PreprocessConfig", "add_dataclass_args", "from_args"]
 
 
 @dataclasses.dataclass
@@ -64,7 +65,7 @@ class TrainConfig:
     sp: int = 1
     pp: int = 1
     pp_microbatches: int = 0
-    # FFN flavor: the port runs "swiglu"
+    # FFN flavor: "swiglu" or "mlp" ("moe" is not ported)
     ffn: str = "swiglu"
     moe_experts: int = 8
     moe_capacity: float = 1.25
@@ -84,10 +85,10 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class SampleConfig:
-    """What the sample, quantize and serve command lines read. ``fit_tpu``'s
-    fields less the TPU-only ``attn_backend`` and ``scan_blocks`` and the
-    VAE's ``vae``; a ``config.json`` of ``fit_tpu`` or of the Trainer loads
-    as it is (unknown keys are dropped)."""
+    """What the sample, demo, quantize and serve command lines read.
+    ``fit_tpu``'s fields less the TPU-only ``attn_backend`` and
+    ``scan_blocks``; a ``config.json`` of ``fit_tpu`` or of the Trainer
+    loads as it is (unknown keys are dropped)."""
 
     checkpoint_path: str = ""
     num_samples: int = 4
@@ -111,6 +112,24 @@ class SampleConfig:
     ffn: str = "swiglu"
     moe_experts: int = 8
     moe_capacity: float = 1.25
+    # a --vae-checkpoint directory holds sd-vae-ft-{vae}.bin: "ema" or "mse"
+    vae: str = "ema"
+
+
+@dataclasses.dataclass
+class PreprocessConfig:
+    """``fit_tpu``'s preprocessing fields and defaults: the image tree, the
+    latent tree, the encode batch, the area cap and patch size that round
+    each image's size, and the VAE checkpoint (a file, or a directory
+    resolved by ``vae``)."""
+
+    dataset_path: str = "../dataset"
+    latent_folder: str = "../latent"
+    batch_size: int = 1
+    sample_size: int = 256
+    patch_size: int = 2
+    vae: str = "ema"
+    vae_checkpoint: Optional[str] = None
 
 
 def add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:

@@ -230,8 +230,9 @@ def test_default_device_without_a_card_raises(tmp_path, entry):
 
 def test_sample_config_is_fit_tpus_less_tpu_and_vae_fields(tmp_path):
     """The same fields and defaults as fit_tpu's SampleConfig but for the
-    TPU-only attn_backend and scan_blocks and the VAE's vae; a fit_tpu
-    config.json (those keys included) restores, and flags override it."""
+    TPU-only attn_backend and scan_blocks (the VAE's vae is ported); a
+    fit_tpu config.json (those keys included) restores, and flags override
+    it."""
     import dataclasses
 
     from fit_tpu.utils.config import SampleConfig as JaxSampleConfig
@@ -239,7 +240,7 @@ def test_sample_config_is_fit_tpus_less_tpu_and_vae_fields(tmp_path):
 
     ours = {f.name: f.default for f in dataclasses.fields(SampleConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxSampleConfig)}
-    assert ours == {k: v for k, v in theirs.items() if k not in ("attn_backend", "scan_blocks", "vae")}
+    assert ours == {k: v for k, v in theirs.items() if k not in ("attn_backend", "scan_blocks")}
     path = tmp_path / "config.json"
     path.write_text(json.dumps(dataclasses.asdict(JaxSampleConfig(model="FiT-XL/2", sampler="dpm"))))
     import argparse

@@ -586,3 +586,42 @@ def test_dpm_sampling_through_the_kernels_matches_plain(cuda_device):
     assert torch.isfinite(got).all()
     rel = ((got - want).pow(2).mean() / want.pow(2).mean()).sqrt().item()
     assert rel <= 5e-2, rel
+
+
+def _vae_pair(blocks, seed=0):
+    from fit_tpu_torch.vae import AutoencoderKL
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        cpu = AutoencoderKL(blocks, device="cpu")  # PyTorch's default conv and linear init
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        out[dtype] = AutoencoderKL(blocks, dtype=dtype, device="cuda")
+        out[dtype].load_state_dict(cpu.state_dict())
+    return cpu, out
+
+
+def _rel_rms(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).pow(2).mean() / want.pow(2).mean()).sqrt().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(8, 16, 16, 16), (128, 256, 512, 512)], ids=["small", "sd"])
+def test_vae_on_the_card(cuda_device, blocks):
+    """The SD VAE on the card (cuDNN convolutions, TF32 off): fp32 within
+    1e-5 relative RMS of the same module on the CPU (another summation
+    order), bf16 within 5e-2 of fp32 (the guided bf16 forwards' bar), for
+    decode and encode_mode."""
+    cpu, card = _vae_pair(blocks)
+    gen = torch.Generator().manual_seed(1)
+    z = torch.randn(2, 4, 8, 12, generator=gen)
+    x = torch.rand(2, 3, 64, 96, generator=gen) * 2 - 1
+    with torch.inference_mode():
+        want_dec, want_enc = cpu.decode(z), cpu.encode_mode(x)
+        dec = {d: v.decode(z.to(cuda_device)) for d, v in card.items()}
+        enc = {d: v.encode_mode(x.to(cuda_device)) for d, v in card.items()}
+    assert dec[torch.bfloat16].dtype == torch.bfloat16 and tuple(dec[torch.float32].shape) == (2, 3, 64, 96)
+    assert _rel_rms(dec[torch.float32], want_dec) <= 1e-5 and _rel_rms(enc[torch.float32], want_enc) <= 1e-5
+    assert _rel_rms(dec[torch.bfloat16], dec[torch.float32]) <= 5e-2
+    assert _rel_rms(enc[torch.bfloat16], enc[torch.float32]) <= 5e-2

@@ -130,5 +130,13 @@ def test_training_diffusion_terms_match():
     want = theirs.training_losses(model, jnp.asarray(x0), jnp.asarray(t), jnp.asarray(noise), jnp.asarray(mask))
     close(got["loss"], want["loss"])
     close(got["mse"], want["mse"])
-    with pytest.raises(NotImplementedError, match="VLB"):
-        create_diffusion(None, learn_sigma=True).training_losses(model, torch.from_numpy(x0), tt, torch.from_numpy(noise))
+    # learn_sigma: the model's second half of axis 1 is the variance, learned through the vb term
+    sigma_model = lambda x, ts: torch.cat([x * 0.5, torch.tanh(x)], dim=1)  # noqa: E731
+    j_sigma_model = lambda x, ts: jnp.concatenate([x * 0.5, jnp.tanh(x)], axis=1)  # noqa: E731
+    got = create_diffusion(None, learn_sigma=True).training_losses(
+        sigma_model, torch.from_numpy(x0), tt, torch.from_numpy(noise), torch.from_numpy(mask))
+    want = jax_create_diffusion(None, learn_sigma=True).training_losses(
+        j_sigma_model, jnp.asarray(x0), jnp.asarray(t), jnp.asarray(noise), jnp.asarray(mask))
+    assert set(got) == set(want) == {"mse", "vb", "loss"}
+    for k in want:
+        np.testing.assert_allclose(np.asarray(got[k]), np.asarray(want[k]), rtol=1e-5, atol=1e-6, err_msg=k)

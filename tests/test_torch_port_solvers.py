@@ -86,8 +86,22 @@ def test_create_diffusion_tables_equal(option):
 
 @pytest.mark.parametrize("kw", [dict(use_kl=True), dict(rescale_learned_sigmas=True)], ids=["use_kl", "rescaled"])
 def test_vlb_losses_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        create_diffusion("10", **kw)
+    """The VLB loss options build fit_tpu's process: the same loss type and
+    tables, respaced, and the same loss terms on the same inputs (each
+    term within 1e-5 relative)."""
+    kw = dict(kw, learn_sigma=True)
+    jd, td = j_create_diffusion("10", **kw), create_diffusion("10", **kw)
+    assert td.loss_type.name == jd.loss_type.name
+    np.testing.assert_array_equal(td.timestep_map, jd.timestep_map)
+    _byte_equal(td.c.posterior_log_variance_clipped, jd.c.posterior_log_variance_clipped)
+    rng = np.random.default_rng(3)
+    x0, noise = (rng.normal(size=SHAPE).astype(np.float32) for _ in range(2))
+    t = np.array([0, 7], np.int32)
+    got = td.training_losses(t_model(True), torch.from_numpy(x0), torch.from_numpy(t), torch.from_numpy(noise))
+    want = jd.training_losses(j_model(True), jnp.asarray(x0), jnp.asarray(t), jnp.asarray(noise))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 # A toy model: its output depends on x and t and stays of order 1; with
