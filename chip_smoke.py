@@ -10,11 +10,11 @@ Phases, each printing its lines; any failure raises (non-zero exit):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compiles the CUDA kernels from the sources in the checkout, one
      nvcc per source, all at once, and prints ptxas's registers and spill
-     bytes of each bf16 K1 (mma.sync) instantiation, of each bf16 K2
-     pass (dk/dv, dq) and of each instantiation of K3's warp-per-row
-     kernel (adaln_warp_rows, every width to 1152); a K1 or K2 one that
-     spills at DP 64 or 80, a K3 one that spills, or a missing
-     instantiation fails the run;
+     bytes of each K1 instantiation (bf16 mma.sync, fp32 3xTF32
+     mma.sync), of each bf16 K2 pass (dk/dv, dq) and of each
+     instantiation of K3's warp-per-row kernel (adaln_warp_rows, every
+     width to 1152); a K1 or K2 one that spills at DP 64 or 80, a K3 one
+     that spills, or a missing instantiation fails the run;
   3. kernel vs plain: the RoPE + masked attention kernel against its plain
      PyTorch version at the shapes of the main path, with the time of both;
   3b. the row kernels (adaLN and SwiGLU glue, with and without the int8
@@ -37,7 +37,8 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      versions (and K2 against autograd through the plain forward) from the
      FiT-B/2 micro-batch to XL at T 4096, with the kernel, plain and SDPA
      times and the bound, the bf16 K2's time beside its predecessor's and,
-     at B/2 and T 4096, each of its passes alone (prologue, dk/dv, dq);
+     at B/2 and T 4096, each of its passes alone (prologue, dk/dv, dq),
+     and there the fp32 K2 beside SDPA's fp32 backward;
      one FiT-B/2 bf16 training step through the
      kernels against the same step through their plain versions; then the
      Trainer on synthetic latents: a 6-step pad-packed run, the same run
@@ -54,15 +55,18 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      forward against the plain kernels, with one step's host and device
      time by group; then one guided FiT-XL/2 forward with
      ``pos_kind="absolute"`` and ``ffn="mlp"`` over mixed sizes (prefix
-     masks), kernels vs plain. Then the bf16 K1's device time at the three
-     main-path shapes (phases 3, 6a and 7a) beside its predecessor's, the
-     bound and SDPA;
+     masks), kernels vs plain. Then the bf16 and the fp32 K1's device time
+     at the three main-path shapes (phases 3, 6a and 7a) beside their
+     predecessors', the bound (fp32: on the 3xTF32 basis, the FMA rate's
+     beside it), the plain version and SDPA;
   8. the command line, on phase 4's FiT-XL/2 weights at full depth: a
      reference (PyTorch Lightning) checkpoint with an EMA copy in its
      optimizer state is written under build/ (and deleted at the end);
      ``cli.sample`` samples its EMA with DPM-Solver++ (bit-identical to
      ``FiTSampler`` on the same weights, labels and generator), DDIM, DDIM
-     packed over four sizes and DDIM in fp32; ``cli.quantize`` writes int8
+     packed over four sizes and DDIM in fp32, beside which one guided fp32
+     forward is profiled (device ms of K1, the GEMMs and the rest);
+     ``cli.quantize`` writes int8
      artifacts without and with SmoothQuant on 2 batches, whose forward is
      checked against the plain kernels (and the equalized bf16 model
      against the unequalized one); ``cli.sample`` samples the artifact;
@@ -126,7 +130,7 @@ BATCH = 8
 MIXED_SIZES = [(256, 256), (224, 288), (192, 320), (256, 224)]
 DEPTH = 28  # FiT-XL/2 blocks, one kernel launch each per denoise step
 BF16_ATOL = 3e-2  # bf16 q/k, p and output roundings against the fp32 plain version
-FP32_ATOL = 1e-4  # fp32 FMA dots, another summation order
+FP32_ATOL = 1e-4  # K1: 3xTF32 products (K2: fp32 FMA dots), another summation order
 FORWARD_REL_RMS = 5e-2  # a full bf16 XL forward, kernel vs plain attention
 # One int8 FiT-XL/2 block (fp32 compute), kernels vs plain kernels, on the
 # block's update: 1e-2 relative RMS. The int8 path is not a smooth function
@@ -190,24 +194,31 @@ def attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed, yardstick=F
     if not yardstick:
         return err, ms, plain_ms
     (bound, by), _ = attention_bounds(b, t, h, d, lengths, dtype, with_lse=False)
+    (fma_bound, fma_by), _ = attention_bounds(b, t, h, d, lengths, dtype, with_lse=False, peak=FP32_FMA_FLOPS)
     dev = {
         "ms": device_ms(lambda: ra.qkv_rope_attention(qkv, cos, sin, lens, scale, h, check_lengths=False)),
         "plain_ms": device_ms(lambda: ra.rope_attention_reference(qkv, cos, sin, lens, scale, h), iters=5),
         "library_ms": sdpa_ms(ra, qkv, cos, sin, lens, h, with_bwd=False)[0],
         "bound_ms": bound,
         "bound_by": by,
+        "fma_bound_ms": fma_bound,
     }
+    fma = f" (at the fp32 FMA rate {fma_bound * 1e3:.1f} by {fma_by})" if dtype == torch.float32 else ""
     print(
         f"kernel vs plain, device times (launches queued behind a spin kernel): kernel_us={dev['ms'] * 1e3:.1f} "
         f"plain_us={dev['plain_ms'] * 1e3:.1f} SDPA_fwd_us={dev['library_ms'] * 1e3:.1f} (excludes RoPE) "
-        f"bound_us={bound * 1e3:.1f} by {by}",
+        f"bound_us={bound * 1e3:.1f} by {by}{fma} {str(dtype).removeprefix('torch.')}",
         flush=True,
     )
     return err, ms, plain_ms, dev
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor cores; fp32 FMA
+# Dense bf16 tensor cores; fp32-accurate products as three TF32 products
+# (3xTF32, the fp32 K1's scheme) at 495 TFLOP/s. The fp32 FMA rate, the
+# basis before it, is printed beside every fp32 attention bound.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+FP32_FMA_FLOPS = 67e12
 # K2 against its plain version, per tensor dq / dk / dv: max abs error over
 # max |plain| in bf16 (bf16 rounding of the rotated q/k, of p, of ds and of
 # the stored gradient), and over max(1, max |plain|) in fp32.
@@ -235,7 +246,17 @@ K1_EARLIER_US = {
     "FiT-XL/2 B16 T256 H16 d72 RoPE, mixed lengths": 115.4,
     "FiT-B/2 B64 T256 H12 d64 RoPE + lse": 209.4,
 }
-NO_SPILL_DPS = (64, 80)  # the main paths' paddings: their bf16 K1 and K2 must not spill
+# The fp32 K1 (3xTF32 mma.sync, rope_attention_tf32.cuh) at the same three
+# shapes, with its predecessor's device us there (the FMA kernel with scores
+# and output in shared memory, timed on an H100 80GB HBM3 at 700 W against
+# the parent tree by ``python -m fit_tpu_torch.cli.k1_fp32_ab --baseline``;
+# PERF.md section 6).
+FP32_K1_EARLIER_US = {
+    "DiT-XL/2 512^2 B16 T1024 H16 d72 RoPE off": 12372.9,
+    "FiT-XL/2 B16 T256 H16 d72 RoPE, mixed lengths": 722.8,
+    "FiT-B/2 B64 T256 H12 d64 RoPE + lse": 1283.4,
+}
+NO_SPILL_DPS = (64, 80)  # the main paths' paddings: their K1 (bf16, fp32) and K2 (bf16) must not spill
 # K3 at the row kernels' shapes (rows (B, T) of width 1152), with its
 # predecessor's device us there (one block of 128 threads per row, timed
 # by this script on an H100 80GB HBM3 at 700 W; PERF.md section 6).
@@ -274,6 +295,12 @@ def mma_ptxas(log_text: str) -> "dict[tuple[int, bool], dict]":
     return {(int(dp), rope == "1"): info for (dp, rope), info in found.items()}
 
 
+def tf32_ptxas(log_text: str) -> "dict[tuple[int, bool], dict]":
+    """The fp32 K1 (3xTF32) instantiations, by (DP, RoPE)."""
+    found = ptxas_by_kernel(log_text, r"rope_attention_tf32_kernelILi(\d+)ELb([01])E")
+    return {(int(dp), rope == "1"): info for (dp, rope), info in found.items()}
+
+
 def k2_mma_ptxas(log_text: str) -> "dict[tuple[str, int], dict]":
     """The bf16 K2 passes (rope_attention_bwd_mma.cuh), by (pass, DP)."""
     found = ptxas_by_kernel(log_text, r"bwd_(dkdv|dq)_mma_kernelILi(\d+)E")
@@ -299,23 +326,24 @@ def check_no_spill(what: str, found: dict, guarded, expected: int) -> None:
         raise AssertionError(f"{what}: {len(found)} of {expected} instantiations in the ptxas log; spills at {spilled}")
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> "tuple[float, str]":
+def bound_ms(nbytes: float, flops: float, dtype, peak: "float | None" = None) -> "tuple[float, str]":
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    memory rate and the operations over the peak rate for their type (or
+    over ``peak``)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (peak or PEAK_FLOPS[dtype])
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def attention_bounds(b, t, h, d, lengths, dtype, with_lse=True):
+def attention_bounds(b, t, h, d, lengths, dtype, with_lse=True, peak=None):
     """(K1, K2) bounds for these inputs: each input read once, each output
     (K1's lse when ``with_lse``) written once; 2 products for the forward
     and 5 for the backward of 2 * T * len * d each per (row, head),
-    counting only the valid keys."""
+    counting only the valid keys (at ``peak`` if given)."""
     es = torch.finfo(dtype).bits // 8
     qkv, tabs, o, lse = b * t * 3 * h * d * es, 2 * b * t * d * 4, b * t * h * d * es, b * t * h * 4
     pair = sum(2 * t * n * d * h for n in lengths)
-    fwd = bound_ms(qkv + tabs + 4 * b + o + (lse if with_lse else 0), 2 * pair, dtype)
-    bwd = bound_ms(qkv + o + o + lse + tabs + 4 * b + qkv, 5 * pair, dtype)
+    fwd = bound_ms(qkv + tabs + 4 * b + o + (lse if with_lse else 0), 2 * pair, dtype, peak)
+    bwd = bound_ms(qkv + o + o + lse + tabs + 4 * b + qkv, 5 * pair, dtype, peak)
     return fwd, bwd
 
 
@@ -412,6 +440,9 @@ def attention_grad_case(ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed, per
     (res["fwd_bound_ms"], res["fwd_bound_by"]), (res["bwd_bound_ms"], res["bwd_bound_by"]) = attention_bounds(
         b, t, h, d, lengths, dtype
     )
+    (res["fwd_fma_bound_ms"], _), (res["bwd_fma_bound_ms"], _) = attention_bounds(
+        b, t, h, d, lengths, dtype, peak=FP32_FMA_FLOPS
+    )
     errs = " ".join(f"{k}={v:.2e}" for k, v in res.items() if k.endswith("rel"))
     print(
         f"K1-lse/K2 vs plain: B={b} T={t} H={h} d={d} {str(dtype).removeprefix('torch.')} "
@@ -420,7 +451,9 @@ def attention_grad_case(ra, rope_freqs_2d, h, d, b, t, lengths, dtype, seed, per
         f"(plain {res['fwd_plain_ms'] * 1e3:.1f}, SDPA fwd {res['sdpa_fwd_ms'] * 1e3:.1f}, "
         f"bound {res['fwd_bound_ms'] * 1e3:.1f} by {res['fwd_bound_by']}), K2 {res['bwd_ms'] * 1e3:.1f} "
         f"(plain {res['bwd_plain_ms'] * 1e3:.1f}, SDPA bwd {res['sdpa_bwd_ms'] * 1e3:.1f}, "
-        f"bound {res['bwd_bound_ms'] * 1e3:.1f} by {res['bwd_bound_by']}); SDPA excludes RoPE",
+        f"bound {res['bwd_bound_ms'] * 1e3:.1f} by {res['bwd_bound_by']}); SDPA excludes RoPE"
+        + (f"; fp32 bounds at the FMA rate: K1 {res['fwd_fma_bound_ms'] * 1e3:.1f}, K2 "
+           f"{res['bwd_fma_bound_ms'] * 1e3:.1f}" if dtype == torch.float32 else ""),
         flush=True,
     )
     worst = max(v for k, v in res.items() if k.endswith("rel"))
@@ -972,13 +1005,16 @@ def strided_case(ra, attn, rope_freqs_2d, name, layout, h, d, t, lengths, dtype,
         "plain_ms": device_ms(plain, iters=5),
         "library_ms": device_ms(library),
     }
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2 * sum(2 * t * n * d * h for n in lengths), dtype)
+    flops = 2 * sum(2 * t * n * d * h for n in lengths)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype)
+    res["fma_bound_ms"], fma_by = bound_ms(nbytes, flops, dtype, FP32_FMA_FLOPS)
     print(
         f"K1 {name} ({layout}, RoPE {'off' if name == 'masked_attention' else 'on'}) vs plain: B={b} T={t} H={h} "
         f"d={d} {str(dtype).removeprefix('torch.')} lengths min {min(lengths)} max_abs_err={err:.3e} (tol {tol:g}); "
         f"device us: kernel {res['ms'] * 1e3:.1f} plain {res['plain_ms'] * 1e3:.1f} SDPA {res['library_ms'] * 1e3:.1f}"
         f"{' (excludes RoPE)' if name != 'masked_attention' else ''} bound {res['bound_ms'] * 1e3:.1f} "
-        f"by {res['bound_by']}",
+        f"by {res['bound_by']}"
+        + (f" (at the fp32 FMA rate {res['fma_bound_ms'] * 1e3:.1f} by {fma_by})" if dtype == torch.float32 else ""),
         flush=True,
     )
     if not err <= tol:
@@ -1218,6 +1254,7 @@ def cli_phase(kernel_modules, smi, ddim_step_ms):
 
 def _cli_phase(kernel_modules, smi, ddim_step_ms):
     from fit_tpu_torch import sampling as sampler_mod
+    from fit_tpu_torch.cli.k1_fp32_ab import fp32_forward_profile
     from fit_tpu_torch.cli import quantize as cli_quantize
     from fit_tpu_torch.cli import sample as cli_sample
     from fit_tpu_torch.models.fit import create_fit
@@ -1310,6 +1347,17 @@ def _cli_phase(kernel_modules, smi, ddim_step_ms):
           f"batch {BATCH}: {mixed['seconds'][0] / STEPS * 1e3:.2f} ms/step; "
           f"--dtype float32 ddim batch {BATCH}: {fp32['seconds'][0] / STEPS * 1e3:.2f} ms/step (CLI batch times, "
           f"host clock to the read-back)", flush=True)
+    # beside the fp32 CLI step: one guided fp32 forward of the same shape on the card, by group
+    prof = fp32_forward_profile()
+    print(
+        f"fp32 guided FiT-XL/2 forward profiled (16 rows x T 256, TF32 off, seeded weights): device "
+        f"{prof['device_ms']:.2f} ms; " + ", ".join(
+            f"{g} {v:.3f} ms" for g, v in sorted(prof["by_group_ms"].items(), key=lambda kv: -kv[1]))
+        + f"; K1 launches {prof['k1_launches']}; {smi}",
+        flush=True,
+    )
+    if prof["k1_launches"] != DEPTH or prof["by_group_ms"].get("K1 attention forward", 0.0) <= 0.0:
+        raise AssertionError(f"the profiled fp32 forward launched K1 {prof['k1_launches']} times, expected {DEPTH}")
 
     # 8c. quantize through the CLI, without and with SmoothQuant on 2 batches
     art, art_eq = CLI_DIR / "int8", CLI_DIR / "int8_eq"
@@ -1894,6 +1942,8 @@ def main() -> None:
     logs = {name: "".join(log.read_text() for log in _build.BUILD_DIR.glob(f"{name}_*.log")) for name in sources}
     check_no_spill("bf16 K1 (mma.sync) (DP, RoPE)", mma_ptxas(logs["rope_attention"]),
                    lambda k: k[0] in NO_SPILL_DPS, 10)
+    check_no_spill("fp32 K1 (3xTF32 mma.sync) (DP, RoPE)", tf32_ptxas(logs["rope_attention"]),
+                   lambda k: k[0] in NO_SPILL_DPS, 10)
     check_no_spill("bf16 K2 (mma.sync) (pass, DP)", k2_mma_ptxas(logs["rope_attention_bwd"]),
                    lambda k: k[1] in NO_SPILL_DPS, 10)
     # every width of K3's warp path (to 1152, so every FiT and DiT width) must not spill
@@ -1903,17 +1953,18 @@ def main() -> None:
     # 3. kernel vs plain, at the main path's shapes (XL: H=16, d=72; L: d=64)
     padded16 = PADDED16
     errs = []
-    fwd_main = None
+    fwd_main = {}  # dtype -> device times at the first (the sampling) shape
     for h, d, t, lengths in [
         (16, 72, 256, padded16),  # 256^2 sampling, batch 8 with CFG
         (16, 72, 1024, [1024, 700]),  # 512^2 extrapolation
         (16, 64, 256, padded16),  # head dim of FiT-S/B/L
     ]:
         for dtype in (torch.bfloat16, torch.float32):
-            res = attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed=len(errs), yardstick=fwd_main is None)
+            first = len(errs) < 2
+            res = attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed=len(errs), yardstick=first)
             errs.append(res[0])
-            if fwd_main is None:
-                fwd_main = res[3]
+            if first:
+                fwd_main[dtype] = res[3]
 
     # 3b. the row kernels and the int8 GEMM at XL serving shapes
     rows = row_kernel_cases()
@@ -2035,6 +2086,16 @@ def main() -> None:
             f"{r['bwd_ms'] / r['sdpa_bwd_ms']:.2f}x SDPA; {smi}",
             flush=True,
         )
+    for i in K2_PASS_CASES:  # the fp32 K2 (FMA dots, unchanged) beside SDPA's fp32 backward
+        h, d, b, t, lengths = GRAD_SHAPES[i]
+        r = grads[(i, torch.float32)]
+        print(
+            f"K2 fp32 (FMA) at B{b} T{t} H{h} d{d}: device us {r['bwd_ms'] * 1e3:.1f}, plain {r['bwd_plain_ms'] * 1e3:.1f}, "
+            f"SDPA fp32 bwd {r['sdpa_bwd_ms'] * 1e3:.1f} ({r['bwd_ms'] / r['sdpa_bwd_ms']:.2f}x SDPA); bound "
+            f"{r['bwd_bound_ms'] * 1e3:.1f} by {r['bwd_bound_by']} (3xTF32 basis; at the FMA rate "
+            f"{r['bwd_fma_bound_ms'] * 1e3:.1f}); {smi}",
+            flush=True,
+        )
     train_step_check(ra, rope_freqs_2d)
     train_launches = trainer_phase(kernel_modules)
     bwd_main = grads[(0, torch.bfloat16)]
@@ -2051,19 +2112,34 @@ def main() -> None:
     dit_launches, dit_latents = dit_phase(kernel_modules)
     torch.cuda.empty_cache()
     fit_absolute_check(sampler_mod)
-    k1_now = {
-        "DiT-XL/2 512^2 B16 T1024 H16 d72 RoPE off": strided[(0, torch.bfloat16)],
-        "FiT-XL/2 B16 T256 H16 d72 RoPE, mixed lengths": fwd_main,
-        "FiT-B/2 B64 T256 H12 d64 RoPE + lse": {
-            "ms": bwd_main["fwd_ms"], "bound_ms": bwd_main["fwd_bound_ms"], "bound_by": bwd_main["fwd_bound_by"],
-            "library_ms": bwd_main["sdpa_fwd_ms"],
-        },
-    }
-    for shape, r in k1_now.items():
+
+    def k1_at(dtype):
+        """K1's device times at its three main-path shapes (phases 7a, 3, 6a)."""
+        b2 = grads[(0, dtype)]
+        return {
+            "DiT-XL/2 512^2 B16 T1024 H16 d72 RoPE off": strided[(0, dtype)],
+            "FiT-XL/2 B16 T256 H16 d72 RoPE, mixed lengths": fwd_main[dtype],
+            "FiT-B/2 B64 T256 H12 d64 RoPE + lse": {
+                "ms": b2["fwd_ms"], "plain_ms": b2["fwd_plain_ms"], "bound_ms": b2["fwd_bound_ms"],
+                "bound_by": b2["fwd_bound_by"], "fma_bound_ms": b2["fwd_fma_bound_ms"], "library_ms": b2["sdpa_fwd_ms"],
+            },
+        }
+
+    for shape, r in k1_at(torch.bfloat16).items():
         print(
             f"K1 bf16 (mma.sync) at {shape}: device us {r['ms'] * 1e3:.1f} (before it: {K1_EARLIER_US[shape]}), "
             f"bound {r['bound_ms'] * 1e3:.1f} by {r['bound_by']}, SDPA fwd {r['library_ms'] * 1e3:.1f}; "
             f"{K1_EARLIER_US[shape] / (r['ms'] * 1e3):.2f}x faster, {r['ms'] / r['library_ms']:.2f}x SDPA; {smi}",
+            flush=True,
+        )
+    for shape, r in k1_at(torch.float32).items():
+        us, earlier = r["ms"] * 1e3, FP32_K1_EARLIER_US[shape]
+        print(
+            f"K1 fp32 (3xTF32 mma.sync) at {shape}: device us {us:.1f} (before it, FMA: {earlier}; {earlier / us:.2f}x "
+            f"faster), bound {r['bound_ms'] * 1e3:.1f} by {r['bound_by']} (3xTF32 at 165 TFLOP/s; {r['bound_ms'] * 1e3 / us:.1%} "
+            f"of it) and {r['fma_bound_ms'] * 1e3:.1f} at the FMA rate; plain {r['plain_ms'] * 1e3:.1f} "
+            f"({r['plain_ms'] * 1e3 / us:.2f}x faster); SDPA fp32 fwd {r['library_ms'] * 1e3:.1f} "
+            f"({r['ms'] / r['library_ms']:.2f}x SDPA's time); {smi}",
             flush=True,
         )
 
@@ -2100,21 +2176,37 @@ def main() -> None:
             "library_ms": library_ms,
         }
 
+    def fp32_numbers(r, err):
+        """The fp32 kernel's numbers at an entry's main shape (the bound on
+        the 3xTF32 basis, the FMA rate's beside it)."""
+        return {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "fma_bound_ms": r["fma_bound_ms"], "library_ms": r["library_ms"], "max_abs_err": err}
+
     row_src = "fit_tpu_torch/ops/csrc/row_quant.cu"
     kernels = [
-        entry("rope_attention_fwd", "fit_tpu_torch/ops/csrc/rope_attention.cu", "fit_tpu/ops/fused_attention.py:806",
-              max(errs), fwd_main["ms"], fwd_main["plain_ms"], fwd_main["bound_ms"], fwd_main["bound_by"],
-              fwd_main["library_ms"], sample_launches),
+        {**entry("rope_attention_fwd", "fit_tpu_torch/ops/csrc/rope_attention.cu",
+                 "fit_tpu/ops/fused_attention.py:806", max(errs), fwd_main[torch.bfloat16]["ms"],
+                 fwd_main[torch.bfloat16]["plain_ms"], fwd_main[torch.bfloat16]["bound_ms"],
+                 fwd_main[torch.bfloat16]["bound_by"], fwd_main[torch.bfloat16]["library_ms"], sample_launches),
+         "fp32": fp32_numbers(fwd_main[torch.float32], max(errs[1::2]))},
         {**entry("rope_attention_bwd", "fit_tpu_torch/ops/csrc/rope_attention_bwd.cu",
                  "fit_tpu/ops/fused_attention.py:1173", bwd_main["max_abs_err"], bwd_main["bwd_ms"],
                  bwd_main["bwd_plain_ms"], bwd_main["bwd_bound_ms"], bwd_main["bwd_bound_by"],
                  bwd_main["sdpa_bwd_ms"]),
-         "passes_ms": {n: bwd_main[f"bwd_{n}_ms"] for n in K2_PASSES}},
+         "passes_ms": {n: bwd_main[f"bwd_{n}_ms"] for n in K2_PASSES},
+         "fp32": {"ms": grads[(0, torch.float32)]["bwd_ms"], "plain_ms": grads[(0, torch.float32)]["bwd_plain_ms"],
+                  "bound_ms": grads[(0, torch.float32)]["bwd_bound_ms"],
+                  "bound_by": grads[(0, torch.float32)]["bwd_bound_by"],
+                  "fma_bound_ms": grads[(0, torch.float32)]["bwd_fma_bound_ms"],
+                  "library_ms": grads[(0, torch.float32)]["sdpa_bwd_ms"],
+                  "max_abs_err": grads[(0, torch.float32)]["max_abs_err"]}},
         entry("adaln_quant", row_src, "fit_tpu/ops/quant.py:184", *rows["adaln_quant"]),
         entry("silu_mul_quant", row_src, "fit_tpu/ops/quant.py:148", *rows["silu_mul_quant"]),
         entry("adaln_modulate", row_src, "fit_tpu/ops/fused_adaln.py:29", *rows["adaln_modulate"]),
         entry("swiglu_glue", row_src, "fit_tpu/ops/fused_adaln.py:66", *rows["swiglu_glue"]),
-        strided_entry("masked_attention", "fit_tpu/ops/attention.py:90", 0),
+        {**strided_entry("masked_attention", "fit_tpu/ops/attention.py:90", 0),
+         "fp32": fp32_numbers(strided[(0, torch.float32)], max(
+             r["max_abs_err"] for (i, dt), r in strided.items() if dt == torch.float32 and STRIDED_CASES[i][0] == "masked_attention"))},
         strided_entry("rope_flash_attention", "fit_tpu/ops/fused_attention.py:375 and :266", 3),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -19,9 +19,15 @@ import numpy as np
 
 __all__ = [
     "grid_positions_2d",
+    "sincos_1d",
     "sincos_2d",
     "ntk_scaled_theta",
+    "rope_freqs_1d_from_positions",
     "rope_freqs_2d",
+    # the reference implementation's names for the same tables
+    "get_1d_sincos_pos_embed",
+    "get_2d_sincos_pos_embed",
+    "precompute_freqs_cis_2d",
 ]
 
 
@@ -45,6 +51,11 @@ def _sincos_from_positions(embed_dim: int, pos: np.ndarray) -> np.ndarray:
     return np.concatenate([np.sin(angles), np.cos(angles)], axis=1)
 
 
+def sincos_1d(embed_dim: int, length: int) -> np.ndarray:
+    """(length, embed_dim) float32 table of positions 0 .. length - 1."""
+    return _sincos_from_positions(embed_dim, np.arange(length)).astype(np.float32)
+
+
 def sincos_2d(embed_dim: int, nh: int, nw: Optional[int] = None) -> np.ndarray:
     """(nh*nw, embed_dim) float32 table, w-axis half first then h-axis."""
     nw = nh if nw is None else nw
@@ -61,8 +72,8 @@ def ntk_scaled_theta(theta: float, dim: int, pos: np.ndarray, max_length: int) -
     return theta * np.power(s, dim / (dim - 2))
 
 
-def _rope_pairs(
-    dim: int, pos: np.ndarray, theta: float, max_length: Optional[int]
+def rope_freqs_1d_from_positions(
+    dim: int, pos: np.ndarray, theta: float = 10000.0, max_length: Optional[int] = None
 ) -> np.ndarray:
     """(M, dim//2, 2) ``[cos, sin]`` pairs with ``f_j = theta**(-2j/dim)``.
 
@@ -91,7 +102,12 @@ def rope_freqs_2d(
     """
     nw = nh if nw is None else nw
     pos_w, pos_h = grid_positions_2d(nh, nw)
-    pairs_w = _rope_pairs(dim // 2, pos_w, theta, max_length)
-    pairs_h = _rope_pairs(dim // 2, pos_h, theta, max_length)
+    pairs_w = rope_freqs_1d_from_positions(dim // 2, pos_w, theta, max_length)
+    pairs_h = rope_freqs_1d_from_positions(dim // 2, pos_h, theta, max_length)
     pairs = np.concatenate([pairs_w, pairs_h], axis=1)
     return pairs.reshape(pairs.shape[0], -1)
+
+
+get_1d_sincos_pos_embed = sincos_1d
+get_2d_sincos_pos_embed = sincos_2d
+precompute_freqs_cis_2d = rope_freqs_2d

@@ -32,6 +32,8 @@ from fit_tpu_torch.core.schedules import (
 )
 
 __all__ = [
+    "ModelMeanType",
+    "ModelVarType",
     "LossType",
     "GaussianDiffusion",
     "create_diffusion",
@@ -45,6 +47,23 @@ __all__ = [
 ]
 
 ModelFn = Callable[..., torch.Tensor]
+
+
+class ModelMeanType(enum.Enum):
+    """What the model predicts; the port takes EPSILON and START_X."""
+
+    PREVIOUS_X = enum.auto()
+    START_X = enum.auto()
+    EPSILON = enum.auto()
+
+
+class ModelVarType(enum.Enum):
+    """The reverse step's variance; the port takes all but LEARNED."""
+
+    LEARNED = enum.auto()
+    FIXED_SMALL = enum.auto()
+    FIXED_LARGE = enum.auto()
+    LEARNED_RANGE = enum.auto()
 
 
 class LossType(enum.Enum):
@@ -134,7 +153,9 @@ class GaussianDiffusion:
     timesteps, which the model was trained on (``None``: not respaced).
     ``original_num_steps`` is the base process's length (the range training
     draws timesteps from). ``loss_type`` chooses the training loss
-    (:class:`LossType`).
+    (:class:`LossType`). ``fit_tpu``'s ``model_mean_type`` and
+    ``model_var_type`` enums may be given instead of the booleans; a
+    boolean that contradicts them raises.
     """
 
     def __init__(
@@ -147,7 +168,21 @@ class GaussianDiffusion:
         predict_xstart: bool = False,
         sigma_small: bool = False,
         loss_type: LossType = LossType.MSE,
+        model_mean_type: Optional[ModelMeanType] = None,
+        model_var_type: Optional[ModelVarType] = None,
     ):
+        if model_mean_type is not None:
+            if model_mean_type == ModelMeanType.PREVIOUS_X:
+                raise ValueError("the port predicts eps or x0: ModelMeanType.PREVIOUS_X is not supported")
+            if predict_xstart and model_mean_type != ModelMeanType.START_X:
+                raise ValueError(f"predict_xstart=True contradicts {model_mean_type}")
+            predict_xstart = model_mean_type == ModelMeanType.START_X
+        if model_var_type is not None:
+            if model_var_type == ModelVarType.LEARNED:
+                raise ValueError("the port learns the variance as LEARNED_RANGE: ModelVarType.LEARNED is not supported")
+            if (learn_sigma, sigma_small) not in ((False, False), self._var_flags(model_var_type)):
+                raise ValueError(f"learn_sigma={learn_sigma}, sigma_small={sigma_small} contradict {model_var_type}")
+            learn_sigma, sigma_small = self._var_flags(model_var_type)
         self.betas = np.asarray(betas, dtype=np.float64)
         self.loss_type = loss_type
         self.learn_sigma = learn_sigma
@@ -157,6 +192,21 @@ class GaussianDiffusion:
         self.original_num_steps = len(self.betas) if original_num_steps is None else original_num_steps
         self.c = compute_coefficients(self.betas)
         self._device_tables: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    @staticmethod
+    def _var_flags(var_type: ModelVarType) -> "tuple[bool, bool]":
+        """(learn_sigma, sigma_small) of a variance type."""
+        return var_type == ModelVarType.LEARNED_RANGE, var_type == ModelVarType.FIXED_SMALL
+
+    @property
+    def model_mean_type(self) -> ModelMeanType:
+        return ModelMeanType.START_X if self.predict_xstart else ModelMeanType.EPSILON
+
+    @property
+    def model_var_type(self) -> ModelVarType:
+        if self.learn_sigma:
+            return ModelVarType.LEARNED_RANGE
+        return ModelVarType.FIXED_SMALL if self.sigma_small else ModelVarType.FIXED_LARGE
 
     @property
     def num_timesteps(self) -> int:

@@ -1,1 +1,39 @@
-"""The FiT and DiT denoisers, their layers and the flax weight converter."""
+"""The FiT and DiT denoisers, their layers and the flax weight converter.
+
+``fit_tpu.models`` also exports ``MoeSwiGLU``; the port has no mixture of
+experts yet.
+"""
+
+from fit_tpu_torch._exports import lazy_exports
+
+__all__, __getattr__, __dir__ = lazy_exports(
+    __name__,
+    {
+        ".convert": (
+            "convert_torch_fit_state_dict",
+            "load_torch_fit_checkpoint",
+        ),
+        ".dit": (
+            "DiT",
+            "DiT_models",
+            "create_dit",
+        ),
+        ".fit": (
+            "FiT",
+            "FiT_models",
+            "create_fit",
+        ),
+        ".layers": (
+            "FinalLayer",
+            "FiTBlock",
+            "GeluMlp",
+            "LabelEmbedder",
+            "SelfAttention",
+            "SwiGLU",
+            "TimestepEmbedder",
+            "apply_rope",
+            "layer_norm_fp32",
+            "modulate",
+        ),
+    },
+)

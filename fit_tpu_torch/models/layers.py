@@ -32,6 +32,7 @@ from fit_tpu_torch.ops.rope_attention import qkv_rope_attention
 __all__ = [
     "modulate",
     "layer_norm_fp32",
+    "apply_rope",
     "linear",
     "Projection",
     "make_linear",
@@ -57,6 +58,23 @@ def layer_norm_fp32(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def apply_rope(q: torch.Tensor, k: torch.Tensor, freqs_cis: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    """q and k (B, H, T, d) rotated by the interleaved (B, T, d) RoPE table
+    (``fit_tpu_torch.core.pos_embed.rope_freqs_2d``), in fp32 and cast back.
+    The blocks rotate inside the attention kernel; this is the standalone
+    rotation of ``fit_tpu``'s public API."""
+    t, d = q.shape[2:]
+    fc = freqs_cis.reshape(freqs_cis.shape[0], 1, t, d // 2, 2).float()
+    cos, sin = fc[..., 0], fc[..., 1]
+
+    def rot(x):
+        xf = x.float().reshape(*x.shape[:3], d // 2, 2)
+        a, bb = xf[..., 0], xf[..., 1]
+        return torch.stack([a * cos - bb * sin, bb * cos + a * sin], dim=-1).reshape(x.shape).to(x.dtype)
+
+    return rot(q), rot(k)
 
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,10 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version."""
 
+from fit_tpu_torch._exports import lazy_exports
+
+__all__, __getattr__, __dir__ = lazy_exports(__name__, {".attention": ("mask_to_lengths", "masked_attention")})
+__all__ += ["launch_counts"]
+
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count since its module's last reset,

@@ -52,152 +52,31 @@
 // rounded to bf16 before both the PV product and the row sum, so o / l
 // averages the same values the product consumed.
 //
-// Design, fp32: the schedule that preceded the bf16 kernel, kept as it was
-// (rope_attention_kernel below): the same blocks and key loop, synchronous
-// tile loads between two barriers, the scores and output accumulator in
-// shared memory, fp32 FMA dots, two lanes per softmax row. It exists to
-// hold the kernel against the fp32 reference at 1e-4; tensor cores cannot
-// serve it.
+// Design, fp32 (rope_attention_tf32.cuh): the bf16 kernel's blocks, key
+// loop, cp.async ring and register-resident scores and output, on mma.sync
+// m16n8k8 TF32 products taken three at a time (3xTF32: each operand split
+// into a TF32 high part and a TF32 remainder), which hold the kernel
+// against the fp32 plain version at 1e-4, where one TF32 product would
+// move it by ~8e-4. At DiT-XL/2 512^2 the 77 GFLOP bound it at ~470 us on the
+// card's 165 TFLOP/s of fp32-accurate products (a third of the 495 TF32
+// rate); at T 256 bytes do. Each product also splits its operands (two
+// conversions and a subtraction per fp32 value), so issue slots, not
+// memory, set its time.
 //
 // With a non-null `lse` both kernels also write each row's log2-sum-exp,
 // lse2 = m + log2(l) from the running max and sum they keep, as a (B, T,
 // H) fp32 tensor: the residual of the backward (rope_attention_bwd.cu),
 // which recomputes the probabilities as exp2(s - lse2) from the same
-// rotated, scaled and rounded q (load_rotated in rope_tiles.cuh). A null
-// `lse` (sampling, serving) changes nothing else.
+// rotated, scaled and rounded q (load_rotated in rope_tiles.cuh). The fp32
+// K2 recomputes its scores with FMA dots, which differ from the 3xTF32
+// scores the lse came from by ~1e-6, inside its 1e-4 bar. A null `lse`
+// (sampling, serving) changes nothing else.
 
 #include "rope_attention_mma.cuh"
+#include "rope_attention_tf32.cuh"
 #include "rope_tiles.cuh"
 
 namespace {
-
-template <typename T, int DP>
-constexpr size_t smem_bytes() {
-  return 3 * kBlockQ * Strides<T, DP>::kTile * sizeof(T) +
-         (kBlockQ * kLdS + kBlockQ * Strides<T, DP>::kOut) * sizeof(float);
-}
-
-template <typename T, int DP, bool ROPE>
-__global__ void __launch_bounds__(kThreads)
-    rope_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                          T* __restrict__ out, Layout lq, Layout lk, Layout lv, Layout lo,
-                          const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                          const int* __restrict__ lengths, float* __restrict__ lse, int seq, int heads,
-                          int d, float q_mul) {
-  // Every region is a multiple of 128 bytes long and each 16-row slab a
-  // multiple of 32 bytes, which keeps every 16-byte vector access aligned.
-  using S = Strides<T, DP>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);  // (64, DP) rotated q * scale * log2(e)
-  T* ks = qs + kBlockQ * S::kTile;     // (64, DP) rotated k
-  T* vs = ks + kBlockK * S::kTile;     // (64, DP) v
-  float* ss = reinterpret_cast<float*>(vs + kBlockK * S::kTile);  // (64, 64) scores, then P
-  float* os = ss + kBlockQ * kLdS;     // (64, DP) unnormalised output
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  // this (batch row, head)'s (T, d) matrix of each operand, rows lX.t apart
-  const T* qb = q + b * lq.b + h * lq.h;
-  const T* kb = k + b * lk.b + h * lk.h;
-  const T* vb = v + b * lv.b + h * lv.h;
-  T* ob = out + b * lo.b + h * lo.h;
-  const float* cos_b = ROPE ? cos_t + b * seq * d : nullptr;
-  const float* sin_b = ROPE ? sin_t + b * seq * d : nullptr;
-  const int len = min(max(lengths[b], 1), seq);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  load_rotated<T, DP, ROPE>(qs, qb, cos_b, sin_b, lq.t, 0, q0, seq, d, q_mul);
-  for (int i = threadIdx.x; i < kBlockQ * S::kOut; i += kThreads) os[i] = 0.f;
-
-  const T* qw = qs + warp * kRowsPerWarp * S::kTile;
-  float* sw = ss + warp * kRowsPerWarp * kLdS;
-  T* pw = reinterpret_cast<T*>(sw);
-  float* ow = os + warp * kRowsPerWarp * S::kOut;
-
-  // Two lanes per query row: lane 2r + half owns row r, key columns
-  // [32*half, 32*half + 32) of each tile and output columns
-  // [half*DP/2, (half+1)*DP/2) for the rescale.
-  const int my_row = lane >> 1;
-  const int half = lane & 1;
-  float m_run = -INFINITY;
-  float l_run = 0.f;
-
-  for (int k0 = 0; k0 < len; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's k/v are consumed; q and os are written
-    if constexpr (ROPE) {
-      load_rotated<T, DP>(ks, kb, cos_b, sin_b, lk.t, 0, k0, len, d, 1.f);
-    } else {
-      load_plain<T, DP>(ks, kb, lk.t, 0, k0, len, d);
-    }
-    load_plain<T, DP>(vs, vb, lv.t, 0, k0, len, d);
-    __syncthreads();
-
-    warp_scores<T, DP>(sw, qw, ks);
-    __syncwarp();
-
-    // Online softmax. Every tile holds at least one valid key (k0 < len),
-    // so the pair's max is finite, masked keys give exp2(-inf) = 0, and
-    // exp2(-inf - m_new) = 0 rescales nothing on the first tile. Both lanes
-    // of a row read their scores before the shuffle, so writing P over
-    // them afterwards is safe.
-    {
-      const int j0 = half * 32;
-      const float* srow = sw + my_row * kLdS + j0;
-      float s[32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        s[j] = (k0 + j0 + j < len) ? srow[j] : -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float m_new = fmaxf(m_run, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)));
-      const float alpha = exp2f(m_run - m_new);
-      T* prow = pw + my_row * S::kP + j0;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const T p = from_float<T>(exp2f(s[j] - m_new));
-        prow[j] = p;
-        sum += to_float(p);
-      }
-      l_run = l_run * alpha + sum + __shfl_xor_sync(0xffffffffu, sum, 1);
-      m_run = m_new;
-      float* orow = ow + my_row * S::kOut + half * (DP / 2);
-#pragma unroll
-      for (int c = 0; c < DP / 2; ++c) orow[c] *= alpha;
-    }
-    __syncwarp();
-
-    warp_accumulate_pv<T, DP>(ow, pw, vs);
-    __syncwarp();
-  }
-
-  // The row sums go through this warp's (now free) score rows, so the
-  // epilogue can read any row's sum.
-  if (half == 0) {
-    sw[my_row] = l_run;
-    const int row = q0 + warp * kRowsPerWarp + my_row;
-    if (lse != nullptr && row < seq) {
-      lse[(b * seq + row) * heads + h] = m_run + log2f(l_run);
-    }
-  }
-  __syncwarp();
-  constexpr int kChunksPerRow = DP / 8;
-#pragma unroll
-  for (int e = lane; e < kRowsPerWarp * kChunksPerRow; e += 32) {
-    const int r = e / kChunksPerRow;
-    const int c = (e % kChunksPerRow) * 8;
-    const int row = q0 + warp * kRowsPerWarp + r;
-    if (row < seq && c < d) {
-      float o[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = ow[r * S::kOut + c + j] / sw[r];
-      store8(ob + row * lo.t + c, o);
-    }
-  }
-}
 
 struct Args {
   const void *q, *k, *v;
@@ -209,16 +88,17 @@ struct Args {
   float q_mul;
 };
 
-// bf16 runs the mma.sync kernel (rope_attention_mma.cuh), fp32 the FMA one.
+// bf16 runs the bf16 mma.sync kernel (rope_attention_mma.cuh), fp32 the
+// 3xTF32 one (rope_attention_tf32.cuh).
 template <typename T, int DP, bool ROPE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr bool kMma = std::is_same<T, bf16>::value;
-  constexpr size_t smem = kMma ? mma_smem_bytes<DP>() : smem_bytes<T, DP>();
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr size_t smem = kBf16 ? mma_smem_bytes<DP>() : tf32_smem_bytes<DP>();
   const auto kernel = [] {
-    if constexpr (kMma) {
+    if constexpr (kBf16) {
       return rope_attention_mma_kernel<DP, ROPE>;
     } else {
-      return rope_attention_kernel<T, DP, ROPE>;
+      return rope_attention_tf32_kernel<DP, ROPE>;
     }
   }();
   cudaError_t err =

@@ -2,8 +2,7 @@
 // backward (rope_attention_bwd.cu): 16-byte vector moves, the rotated and
 // plain tile loads from a row-strided matrix (the (B, T, 3C) qkv projection,
 // or one head of any (B, T, H, d) view), and the two per-warp FMA products
-// (scores = A B^T and acc += P V) that the fp32 kernels of both directions
-// are built from.
+// (scores = A B^T and acc += P V) that the fp32 backward is built from.
 //
 // A block has 4 warps and works on 64-row tiles; each warp owns 16 rows.
 // Tiles hold a head dim padded to DP (a multiple of 16) in shared memory;
@@ -158,8 +157,9 @@ __device__ __forceinline__ void load_plain(T* dst, const T* src, int64_t row_str
 }
 
 // sw (16, kBlockK) fp32 = aw (16, DP) @ bs (kBlockK, DP)^T, for one warp,
-// on FMA dots (fp32 only: bf16 runs on mma.sync, rope_attention_mma.cuh and
-// rope_attention_bwd_mma.cuh).
+// on FMA dots (the fp32 backward only: bf16 runs on mma.sync,
+// rope_attention_mma.cuh and rope_attention_bwd_mma.cuh, and the fp32
+// forward on 3xTF32 mma.sync, rope_attention_tf32.cuh).
 template <typename T, int DP>
 __device__ __forceinline__ void warp_scores(float* sw, const T* aw, const T* bs) {
   static_assert(std::is_same<T, float>::value, "the FMA schedule serves fp32 only");

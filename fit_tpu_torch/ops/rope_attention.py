@@ -12,8 +12,10 @@ Two kernels:
 
 * K1 -> ``csrc/rope_attention.cu``: the forward on (B, T, H, d) operands
   read by stride (bf16 on ``mma.sync`` tensor-core tiles,
-  ``csrc/rope_attention_mma.cuh``; fp32 on FMA dots), with RoPE or (null
-  tables) without it, optionally with each row's log2-sum-exp ``lse2``
+  ``csrc/rope_attention_mma.cuh``; fp32 on ``mma.sync`` TF32 tiles, three
+  products each for fp32 accuracy, ``csrc/rope_attention_tf32.cuh``), with
+  RoPE or (null tables) without it, optionally with each row's
+  log2-sum-exp ``lse2``
   (B, T, H) fp32, the residual of the backward
   (``_qkv_forward_chunked(..., with_lse=True)``). Three wrappers
   launch it, each with its own count: :func:`rope_attention_fwd` (the
@@ -522,9 +524,10 @@ _ENTRIES = {
 }
 
 
-def _lib(source: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<source>.cu`` with its C entries typed."""
-    lib = _build.load(source)
+def _lib(source: str, src_dir=_build.CSRC) -> ctypes.CDLL:
+    """The built library of ``<src_dir>/<source>.cu`` (this tree's ``csrc/``
+    unless another's is given) with its C entries typed."""
+    lib = _build.load(source, src_dir)
     entry, kinds = _ENTRIES[source]
     fn = getattr(lib, entry)
     if fn.argtypes is None:

@@ -1,6 +1,13 @@
 """The Stable-Diffusion VAE (AutoencoderKL) and its diffusers checkpoint loader."""
 
-from fit_tpu_torch.vae.convert import convert_state_dict, load_autoencoder, load_checkpoint, resolve_checkpoint
+from fit_tpu_torch.vae.convert import (
+    convert_state_dict,
+    convert_torch_state_dict,
+    load_autoencoder,
+    load_checkpoint,
+    load_torch_checkpoint,
+    resolve_checkpoint,
+)
 from fit_tpu_torch.vae.model import SD_VAE_SCALING, AutoencoderKL, DiagonalGaussian, to_uint8
 
 __all__ = [
@@ -8,8 +15,10 @@ __all__ = [
     "AutoencoderKL",
     "DiagonalGaussian",
     "convert_state_dict",
+    "convert_torch_state_dict",
     "load_autoencoder",
     "load_checkpoint",
+    "load_torch_checkpoint",
     "resolve_checkpoint",
     "to_uint8",
 ]

@@ -26,6 +26,8 @@ __all__ = [
     "load_checkpoint",
     "resolve_checkpoint",
     "load_autoencoder",
+    "convert_torch_state_dict",
+    "load_torch_checkpoint",
 ]
 
 _RESNET = ("norm1", "conv1", "norm2", "conv2")
@@ -171,3 +173,8 @@ def load_autoencoder(path: str, kind: str = "ema", dtype=torch.float32, device="
     vae = AutoencoderKL(**cfg, dtype=dtype, device=device)
     vae.load_state_dict(convert_state_dict(sd, cfg["block_out_channels"]))
     return vae.eval()
+
+
+# fit_tpu's names for the same two functions
+convert_torch_state_dict = convert_state_dict
+load_torch_checkpoint = load_checkpoint

@@ -6,14 +6,19 @@ imports no jax, so it runs where only PyTorch is installed:
 
 Tolerances, against the plain versions on the same inputs:
 - attention (max abs error on valid query rows, against the fp32 plain
-  version): 1e-4 for fp32 (fp32 FMA dots, another summation order), 3e-2
+  version): 1e-4 for fp32 (3xTF32 tensor-core products, ~2^-22 relative,
+  another summation order), 3e-2
   for bf16 (bf16 rounding of the rotated q/k, of p and of the output, the
   bound fit_tpu uses for its bf16 dot kernels); the same for K1's strided
   (B, T, H, d) and (B, H, T, d) operands with RoPE and without it, and
   for the gradients through them (max abs over max |plain|); the bf16
   kernel over every layout, RoPE on and off, lse on and off, every
   compiled padding and T from 1 to 4096 at 3e-2, two launches bit for bit
-  equal, and K2 fed by its lse within 3e-2 of max |exact VJP|;
+  equal, and K2 fed by its lse within 3e-2 of max |exact VJP|; the fp32
+  kernel over every layout, RoPE on and off, lse on and off, every
+  compiled padding and T from 1 to 1024 at 1e-4, two launches bit for bit
+  equal, and the fp32 K2 fed by its lse within 1e-4 of max(1, max |exact
+  VJP|);
 - K1's lse and the backward K2 (dq, dk, dv each, every row): max abs
   error over max(1, max |plain|) within 1e-4 in fp32, over max |plain|
   within 3e-2 in bf16 (bf16 rounding of the rotated q/k, of p, of ds and of
@@ -292,10 +297,10 @@ K1_LAYOUTS = ["packed", "bthd", "bhtd"]
 K1_T_LENGTHS = [(1, (1, 1)), (96, (96, 50, 1)), (256, (256, 131, 1)), (4096, (4096, 1000, 1))]
 
 
-def k1_operands(layout, h, d, t, lengths, device, seed):
-    """bf16 (B, T, H, d) q, k, v and an empty output in ``layout``, with
-    cos, sin and lengths."""
-    qkv, cos, sin, lens = make_inputs(seed, h, d, t, lengths, device, torch.bfloat16)
+def k1_operands(layout, h, d, t, lengths, device, seed, dtype=torch.bfloat16):
+    """(B, T, H, d) q, k, v and an empty output in ``layout``, with cos,
+    sin and lengths."""
+    qkv, cos, sin, lens = make_inputs(seed, h, d, t, lengths, device, dtype)
     b = len(lengths)
     q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
     if layout == "packed":
@@ -378,6 +383,77 @@ def test_k2_from_the_bf16_k1_lse_matches_autograd(cuda_device, h, d, t, lengths)
     for i in range(3):
         part, ref = got[..., i * c : (i + 1) * c], want[..., i * c : (i + 1) * c]
         assert (part - ref).abs().max().item() <= GRAD_REL[torch.bfloat16] * ref.abs().max().item(), f"d{'qkv'[i]}"
+
+
+# The fp32 K1 (the 3xTF32 mma.sync kernel) over its whole contract, as the
+# bf16 one above: every layout, RoPE on and off, lse on and off, every
+# compiled padding and T from 1 to 1024 (a one-key row, a ragged last tile
+# and a full row in each batch), at the fp32 bar.
+FP32_K1_T_LENGTHS = [(1, (1, 1)), (96, (96, 50, 1)), (256, (256, 131, 1)), (1024, (1024, 700, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,lengths", FP32_K1_T_LENGTHS, ids=[f"T{t}" for t, _ in FP32_K1_T_LENGTHS])
+@pytest.mark.parametrize("d", [16, 32, 64, 72, 128])
+@pytest.mark.parametrize("with_lse", [False, True], ids=["no-lse", "lse"])
+@pytest.mark.parametrize("rope", [False, True], ids=["rope-off", "rope-on"])
+@pytest.mark.parametrize("layout", K1_LAYOUTS)
+def test_fp32_k1_matches_plain_version(cuda_device, layout, rope, with_lse, d, t, lengths):
+    h = 4
+    q, k, v, out, cos, sin, lens = k1_operands(layout, h, d, t, lengths, cuda_device, seed=d + t, dtype=torch.float32)
+    if not rope:
+        cos = sin = None
+    lse = torch.empty((len(lengths), t, h), dtype=torch.float32, device=cuda_device) if with_lse else None
+    ra._k1_launch(q, k, v, out, cos, sin, lens, d**-0.5 * ra.LOG2_E, lse)
+    torch.cuda.synchronize()
+    want, lse_want = k1_plain(q, k, v, cos, sin, lens, d**-0.5, with_lse)
+    assert torch.isfinite(out).all()
+    assert_valid_rows_close(out, want, lengths, 1e-4)
+    if with_lse:
+        assert torch.isfinite(lse).all()
+        tol = GRAD_REL[torch.float32] * max(1.0, lse_want.abs().max().item())
+        assert (lse - lse_want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", K1_LAYOUTS)
+@pytest.mark.parametrize("rope", [False, True], ids=["rope-off", "rope-on"])
+def test_fp32_k1_launches_repeat_bit_for_bit(cuda_device, layout, rope):
+    h, d, t, lengths = 16, 72, 1024, (1024, 700, 1)
+    q, k, v, out, cos, sin, lens = k1_operands(layout, h, d, t, lengths, cuda_device, seed=13, dtype=torch.float32)
+    if not rope:
+        cos = sin = None
+    lse = torch.empty((len(lengths), t, h), dtype=torch.float32, device=cuda_device)
+    out2, lse2 = torch.empty_like(out), torch.empty_like(lse)
+    ra._k1_launch(q, k, v, out, cos, sin, lens, d**-0.5 * ra.LOG2_E, lse)
+    ra._k1_launch(q, k, v, out2, cos, sin, lens, d**-0.5 * ra.LOG2_E, lse2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "h,d,t,lengths",
+    [
+        (12, 64, 256, (256, 200, 130, 64, 1, 255, 129, 33)),  # FiT-B/2 training
+        (16, 72, 1024, (1024, 700, 1)),
+        (2, 128, 96, (96, 1)),
+    ],
+)
+def test_k2_from_the_fp32_k1_lse_matches_autograd(cuda_device, h, d, t, lengths):
+    """The fp32 K2 (FMA dots) fed by the 3xTF32 K1's out and lse against
+    the exact VJP (autograd through the fp32 plain forward): dq, dk and dv
+    each within 1e-4 of max(1, max |plain|), K2's fp32 bar."""
+    qkv, cos, sin, lens = make_inputs(14, h, d, t, lengths, cuda_device, torch.float32)
+    g = torch.randn((len(lengths), t, h * d), generator=torch.Generator(cuda_device).manual_seed(5), device=cuda_device)
+    out, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
+    got = ra.rope_attention_bwd(qkv, g, out, lse, cos, sin, lens, d**-0.5, h)
+    x = qkv.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(ra.rope_attention_reference(x, cos, sin, lens, d**-0.5, h), x, g)
+    c = h * d
+    for i in range(3):
+        part, ref = got[..., i * c : (i + 1) * c], want[..., i * c : (i + 1) * c]
+        assert (part - ref).abs().max().item() <= GRAD_REL[torch.float32] * max(1.0, ref.abs().max().item()), f"d{'qkv'[i]}"
 
 
 # The bf16 K2 (the prologue and the two mma.sync passes) over its range:
