@@ -1,9 +1,12 @@
 """Where a training step's time goes on the card.
 
     python -m fit_tpu_torch.cli.profile_train [--model FiT-B/2] [--batch 128]
-        [--grad-accum 2] [--no-remat] [--steps 3] [--trace out.json]
+        [--grad-accum 2] [--no-remat] [--steps 3] [--dtype bfloat16|float32]
+        [--trace out.json]
 
-Builds the model, its AdamW state and one synthetic batch of 256² latents
+Builds the model in ``--dtype`` (bf16 by default; float32 is the
+reference's 32-true precision, with TF32 off for the GEMMs), its AdamW
+state and one synthetic batch of 256² latents
 (the four aspect ratios of ``chip_smoke.py``'s Trainer phase, T = 256) on
 the card and runs the train step of ``fit_tpu_torch.train.step`` (with
 per-block remat, as the Trainer runs pad packing, unless ``--no-remat``): two
@@ -12,10 +15,10 @@ synchronize), then ``--steps`` more under ``torch.profiler``, whose own
 overhead slows the host, so it gives only the device side. Prints the
 time per optimizer step, the host's enqueue time, the device's kernel time
 per step by group (GEMMs, the attention forward K1, the backward K2, the
-optimizer and EMA, the rest) and K2's by kernel (bf16: prologue, dk/dv,
-dq), the device's idle share (1 - kernel time over step time) and the
-peak memory. The data loader is not in the window: this times the step
-alone.
+optimizer and EMA, the rest) and K2's by kernel (the prologue, the dk/dv
+and dq passes: ``mma`` in bf16, ``tf32`` in fp32), the device's idle share
+(1 - kernel time over step time) and the peak memory. The data loader is
+not in the window: this times the step alone.
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ from fit_tpu_torch.train.state import create_train_state, make_optimizer
 from fit_tpu_torch.train.step import make_train_step, split_for_accumulation
 
 LATENTS = [(32, 32), (28, 36), (24, 40), (36, 28)]  # (h, w) of the 4-channel latents
-# K2's kernels: in bf16 the prologue and the two mma.sync passes, in fp32
-# delta and the two FMA passes
-K2_KERNELS = ("bwd_prologue_kernel", "bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel", "dkdv_kernel", "dq_kernel",
-              "delta_kernel")
+# K2's kernels: the prologue, then the dk/dv and dq passes on mma.sync (bf16)
+# or on 3xTF32 mma.sync (fp32); and the fp32 FMA kernels of trees before them
+# (delta and two passes), which cli.k2_fp32_ab profiles on the parent tree
+K2_KERNELS = ("bwd_prologue_kernel", "bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_tf32_kernel",
+              "bwd_dq_tf32_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel")
 GROUPS = [  # (group, substrings of the kernel names in it), first match wins
     # K1: bf16 and fp32 (3xTF32) forwards, and the fp32 FMA forward of trees before them
     ("K1 attention forward", ("rope_attention_mma_kernel", "rope_attention_tf32_kernel", "rope_attention_kernel")),
@@ -87,32 +91,25 @@ def synthetic_batch(model, batch: int, generator: torch.Generator) -> dict:
     }
 
 
-def main(argv=None) -> dict:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", default="FiT-B/2")
-    parser.add_argument("--batch", type=int, default=128, help="global batch (all micro-batches)")
-    parser.add_argument("--grad-accum", type=int, default=2)
-    parser.add_argument("--no-remat", action="store_true", help="keep every block's activations")
-    parser.add_argument("--steps", type=int, default=3)
-    parser.add_argument("--trace", default="", help="write the chrome trace here")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_train: needs a CUDA card")
+def profile_step(model_name: str = "FiT-B/2", batch_size: int = 128, grad_accum: int = 2, remat: bool = True,
+                 steps: int = 3, dtype: torch.dtype = torch.bfloat16, trace: str = "") -> dict:
+    """Times and profiles the train step on the card (see the module's
+    docstring); returns the numbers it prints."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(0)
-    model = create_fit(args.model, dtype=torch.bfloat16, remat=not args.no_remat, generator=gen)
+    model = create_fit(model_name, dtype=dtype, remat=remat, generator=gen)
     state = create_train_state(model, make_optimizer(model.parameters()))
-    batch = synthetic_batch(model, args.batch, gen)
-    if args.grad_accum > 1:
-        batch = split_for_accumulation(batch, args.grad_accum)
-    step = make_train_step(create_diffusion(None), grad_accum=args.grad_accum)
+    batch = synthetic_batch(model, batch_size, gen)
+    if grad_accum > 1:
+        batch = split_for_accumulation(batch, grad_accum)
+    step = make_train_step(create_diffusion(None), grad_accum=grad_accum)
 
     for _ in range(2):
         step(state, batch, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(args.steps):
+    for _ in range(steps):
         step(state, batch, gen)
     enqueued = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -121,15 +118,16 @@ def main(argv=None) -> dict:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.steps):
+        for _ in range(steps):
             step(state, batch, gen)
         torch.cuda.synchronize()
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    if trace:
+        prof.export_chrome_trace(trace)
 
     by_group = collections.Counter()
     by_kernel = collections.Counter()
     k2_by_pass = collections.Counter()  # K2's group by kernel: its passes sum to the group
+    k2_launches = collections.Counter()
     launches = 0
     for evt in prof.events():  # device activities only: kernels, memsets, copies
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -138,29 +136,49 @@ def main(argv=None) -> dict:
             by_kernel[evt.name] += us
             if group_of(evt.name) == "K2 attention backward":
                 k2_by_pass[k2_pass(evt.name)] += us
+                k2_launches[k2_pass(evt.name)] += 1
             launches += 1
-    device_ms = sum(by_group.values()) / 1e3 / args.steps
-    step_ms = wall * 1e3 / args.steps
+    device_ms = sum(by_group.values()) / 1e3 / steps
+    step_ms = wall * 1e3 / steps
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
-    result = {
+    return {
         "device": smi,
-        "model": args.model,
-        "global_batch": args.batch,
-        "grad_accum": args.grad_accum,
-        "remat": not args.no_remat,
+        "model": model_name,
+        "dtype": str(dtype).removeprefix("torch."),
+        "global_batch": batch_size,
+        "grad_accum": grad_accum,
+        "remat": remat,
         "step_ms": step_ms,
-        "host_enqueue_ms": enqueued * 1e3 / args.steps,
-        "img_per_s": args.batch / (step_ms / 1e3),
+        "host_enqueue_ms": enqueued * 1e3 / steps,
+        "img_per_s": batch_size / (step_ms / 1e3),
         "device_ms_per_step": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / step_ms),
-        "device_activities_per_step": launches / args.steps,
-        "device_ms_by_group": {g: us / 1e3 / args.steps for g, us in by_group.most_common()},
-        "k2_ms_by_pass": {k: us / 1e3 / args.steps for k, us in k2_by_pass.most_common()},
-        "top_kernels_ms": {k[:90]: us / 1e3 / args.steps for k, us in by_kernel.most_common(12)},
+        "device_activities_per_step": launches / steps,
+        "device_ms_by_group": {g: us / 1e3 / steps for g, us in by_group.most_common()},
+        "k2_ms_by_pass": {k: us / 1e3 / steps for k, us in k2_by_pass.most_common()},
+        "k2_launches_per_step": {k: n / steps for k, n in k2_launches.most_common()},
+        "top_kernels_ms": {k[:90]: us / 1e3 / steps for k, us in by_kernel.most_common(12)},
         "max_memory_allocated_gib": peak / 2**30,
     }
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", default="FiT-B/2")
+    parser.add_argument("--batch", type=int, default=128, help="global batch (all micro-batches)")
+    parser.add_argument("--grad-accum", type=int, default=2)
+    parser.add_argument("--no-remat", action="store_true", help="keep every block's activations")
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="the model's compute dtype (float32: TF32 off)")
+    parser.add_argument("--trace", default="", help="write the chrome trace here")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: needs a CUDA card")
+    result = profile_step(args.model, args.batch, args.grad_accum, not args.no_remat, args.steps,
+                          getattr(torch, args.dtype), args.trace)
     print(json.dumps(result, indent=1))
     return result
 

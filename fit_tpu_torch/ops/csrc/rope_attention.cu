@@ -68,9 +68,10 @@
 // H) fp32 tensor: the residual of the backward (rope_attention_bwd.cu),
 // which recomputes the probabilities as exp2(s - lse2) from the same
 // rotated, scaled and rounded q (load_rotated in rope_tiles.cuh). The fp32
-// K2 recomputes its scores with FMA dots, which differ from the 3xTF32
-// scores the lse came from by ~1e-6, inside its 1e-4 bar. A null `lse`
-// (sampling, serving) changes nothing else.
+// K2 recomputes its scores on the same 3xTF32 products, in another k order
+// and from its prologue's rotation, so they differ from the scores the lse
+// came from by ~1e-6, inside its 1e-4 bar. A null `lse` (sampling,
+// serving) changes nothing else.
 
 #include "rope_attention_mma.cuh"
 #include "rope_attention_tf32.cuh"

@@ -38,7 +38,7 @@
 //
 // Both passes take each 64-row tile in two 32-column sub-steps (below).
 //
-// This does 8 products per (query tile, key tile) against the minimal 5 (S
+// This does 7 products per (query tile, key tile) against the minimal 5 (S
 // and dP are computed in both passes): fusing dq into the dk/dv pass would
 // need atomics, or a (T / 64)-deep fp32 buffer of partial dq, and a fixed
 // order is what makes a resumed training run repeat its loss stream bit
@@ -73,11 +73,15 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
 // 8-element chunk of each, so a block has 32 * d / 8 threads (at most 512).
 constexpr int kPrologueRows = 32;
 
+// T is the activations' type: bf16 (the rotated q and k rounded once) or
+// fp32 (the 3xTF32 passes of rope_attention_bwd_tf32.cuh read them as they
+// are).
+template <typename T>
 __global__ void __launch_bounds__(512)
-    bwd_prologue_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
-                        const bf16* __restrict__ out, const float* __restrict__ lse,
+    bwd_prologue_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
+                        const T* __restrict__ out, const float* __restrict__ lse,
                         const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                        bf16* __restrict__ q_rot, bf16* __restrict__ k_rot,
+                        T* __restrict__ q_rot, T* __restrict__ k_rot,
                         float* __restrict__ lse_h, float* __restrict__ delta_h, int batch, int seq,
                         int seq_pad, int heads, int d, float q_mul) {
   __shared__ float part[512];  // each chunk's share of its row's delta
@@ -94,7 +98,7 @@ __global__ void __launch_bounds__(512)
     const int64_t bh = row / seq;
     const int h = static_cast<int>(bh % heads);
     const int64_t bt = (bh / heads) * seq + t;
-    const bf16* q = qkv + bt * 3 * width + h * d + c;
+    const T* q = qkv + bt * 3 * width + h * d + c;
     float a[8], o[8], cs[8], sn[8], x[8], y[8], xr[8], yr[8];
     load8(a, g + bt * width + h * d + c);
     load8(o, out + bt * width + h * d + c);
@@ -129,48 +133,75 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-// 64 lse2 values, then 64 deltas, of query rows [q0, q0 + 64) by cp.async
-// from one (batch row, head)'s rows of the head-major statistics; values
-// past `seq` are zero-filled. Warp 0 issues the 32 copies.
+// ROWS lse2 values, then ROWS deltas, of query rows [q0, q0 + ROWS) by
+// cp.async from one (batch row, head)'s rows of the head-major statistics;
+// values past `seq` are zero-filled. The first ROWS / 2 threads issue the
+// 16-byte copies.
+template <int ROWS = kBlockQ>
 __device__ __forceinline__ void async_stats(float* dst, const float* lse_bh, const float* delta_bh,
                                             int q0, int seq) {
-  if (threadIdx.x < 32) {
-    const int i = threadIdx.x % 16;
-    const float* src = (threadIdx.x < 16 ? lse_bh : delta_bh) + q0 + 4 * i;
+  constexpr int kCopies = ROWS / 4;  // of each array
+  if (threadIdx.x < 2 * kCopies) {
+    const int i = threadIdx.x % kCopies;
+    const float* src = (threadIdx.x < kCopies ? lse_bh : delta_bh) + q0 + 4 * i;
     const int n = min(max(seq - (q0 + 4 * i), 0), 4);
-    cp_async16_n(smem_u32(dst + (threadIdx.x / 16) * kBlockQ + 4 * i), n ? src : lse_bh, 4 * n);
+    cp_async16_n(smem_u32(dst + (threadIdx.x / kCopies) * ROWS + 4 * i), n ? src : lse_bh, 4 * n);
   }
 }
 
-// rope_vjp(x * mul) of one accumulator pair (columns col, col + 1 of `row`)
-// as a bf16 pair: x cos - rot(x sin), rot(a, b) = (-b, a).
-__device__ __forceinline__ uint32_t rope_vjp_pair(float x0, float x1, const float* cos_b,
-                                                  const float* sin_b, int row, int col, int d,
-                                                  float mul) {
+// rope_vjp(x * mul) of one accumulator pair (columns col, col + 1 of `row`):
+// x cos - rot(x sin), rot(a, b) = (-b, a).
+__device__ __forceinline__ float2 rope_vjp2(float x0, float x1, const float* cos_b, const float* sin_b,
+                                            int row, int col, int d, float mul) {
   const float2 cs = *reinterpret_cast<const float2*>(cos_b + static_cast<int64_t>(row) * d + col);
   const float2 sn = *reinterpret_cast<const float2*>(sin_b + static_cast<int64_t>(row) * d + col);
   x0 *= mul;
   x1 *= mul;
-  return pack_bf16(x0 * cs.x + x1 * sn.y, x1 * cs.y - x0 * sn.x);
+  return make_float2(x0 * cs.x + x1 * sn.y, x1 * cs.y - x0 * sn.x);
 }
 
-// Stores this warp's 16 staged rows (row stride DP + 8) into the rows
+// rope_vjp2 as a bf16 pair.
+__device__ __forceinline__ uint32_t rope_vjp_pair(float x0, float x1, const float* cos_b,
+                                                  const float* sin_b, int row, int col, int d,
+                                                  float mul) {
+  const float2 r = rope_vjp2(x0, x1, cos_b, sin_b, row, col, d, mul);
+  return pack_bf16(r.x, r.y);
+}
+
+// Stores this warp's 16 staged rows (row stride LD elements) into the rows
 // [row0, row0 + 16) below `seq` of a row-strided (T, d) destination, as
 // 16-byte chunks.
-template <int DP>
-__device__ __forceinline__ void store_staged(bf16* dst, const bf16* stage, int64_t row_stride,
-                                             int row0, int seq, int d) {
-  constexpr int kChunksPerRow = DP / 8;
-  constexpr int kTile = Strides<bf16, DP>::kTile;
+template <typename T, int DP, int LD = Strides<T, DP>::kTile>
+__device__ __forceinline__ void store_staged(T* dst, const T* stage, int64_t row_stride, int row0,
+                                             int seq, int d) {
+  constexpr int kChunk = 16 / sizeof(T);  // elements a chunk
+  constexpr int kChunksPerRow = DP / kChunk;
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int e = lane; e < kRowsPerWarp * kChunksPerRow; e += 32) {
     const int r = e / kChunksPerRow;
-    const int c = (e % kChunksPerRow) * 8;
+    const int c = (e % kChunksPerRow) * kChunk;
     const int row = row0 + r;
     if (row < seq && c < d) {
       *reinterpret_cast<uint4*>(dst + row * row_stride + c) =
-          *reinterpret_cast<const uint4*>(stage + r * kTile + c);
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+    }
+  }
+}
+
+// A dk/dv block whose keys all lie at or past the length: dk = dv = 0 on
+// its rows below `seq`, in 16-byte chunks.
+template <typename T, int DP>
+__device__ __forceinline__ void zero_key_rows(T* dk_dst, T* dv_dst, int64_t row_stride, int k0, int seq,
+                                              int d) {
+  constexpr int kChunk = 16 / sizeof(T);
+  constexpr int kChunksPerRow = DP / kChunk;
+  for (int i = threadIdx.x; i < kBlockK * kChunksPerRow; i += kThreads) {
+    const int row = k0 + i / kChunksPerRow;
+    const int c = (i % kChunksPerRow) * kChunk;
+    if (row < seq && c < d) {
+      *reinterpret_cast<uint4*>(dk_dst + row * row_stride + c) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(dv_dst + row * row_stride + c) = make_uint4(0, 0, 0, 0);
     }
   }
 }
@@ -304,15 +335,7 @@ __global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2)
   const int lane = threadIdx.x % 32;
 
   if (k0 >= len) {  // masked keys: dk = dv = 0
-    constexpr int kChunksPerRow = DP / 8;
-    for (int i = threadIdx.x; i < kBlockK * kChunksPerRow; i += kThreads) {
-      const int row = k0 + i / kChunksPerRow;
-      const int c = (i % kChunksPerRow) * 8;
-      if (row < seq && c < d) {
-        *reinterpret_cast<uint4*>(dk_dst + row * row_stride + c) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(dv_dst + row * row_stride + c) = make_uint4(0, 0, 0, 0);
-      }
-    }
+    zero_key_rows<bf16, DP>(dk_dst, dv_dst, row_stride, k0, seq, d);
     return;
   }
 
@@ -407,8 +430,8 @@ __global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2)
     }
   }
   __syncwarp();
-  store_staged<DP>(dk_dst, kst, row_stride, row0, seq, d);
-  store_staged<DP>(dv_dst, vst, row_stride, row0, seq, d);
+  store_staged<bf16, DP>(dk_dst, kst, row_stride, row0, seq, d);
+  store_staged<bf16, DP>(dv_dst, vst, row_stride, row0, seq, d);
 }
 
 // 3 blocks an SM at DP <= 80, as in the forward; 2 at DP 128.
@@ -544,7 +567,7 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 3 : 2)
     }
   }
   __syncwarp();
-  store_staged<DP>(dq_dst, stage, row_stride, row0, seq, d);
+  store_staged<bf16, DP>(dq_dst, stage, row_stride, row0, seq, d);
 }
 
 }  // namespace

@@ -150,18 +150,18 @@ __device__ __forceinline__ void mma_3xtf32(float (*c)[4], const uint32_t (&a_hi)
 // would stay live across them.
 __device__ __forceinline__ void cp_async_wait_all_fenced() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
-// A 64-row fp32 tile of (64, DP) shared memory, row stride LD, filled by
-// cp.async from rows [row0, row0 + 64) of a row-strided (B, T, H, d) head;
-// rows at or past `valid` and columns at or past d are zero-filled.
-template <int DP, int LD>
+// A ROWS-row fp32 tile of (ROWS, DP) shared memory, row stride LD, filled
+// by cp.async from rows [row0, row0 + ROWS) of a row-strided (B, T, H, d)
+// head; rows at or past `valid` and columns at or past d are zero-filled.
+template <int DP, int LD, int ROWS = kBlockK>
 __device__ __forceinline__ void async_tile_f32(float* dst, const float* src, int64_t row_stride, int row0,
                                                int valid, int d) {
   constexpr int kChunks = DP / 4;
-  static_assert(kBlockK * kChunks % kThreads == 0, "whole chunks per thread");
+  static_assert(ROWS * kChunks % kThreads == 0, "whole chunks per thread");
   // not unrolled: unrolled, the compiler keeps one global pointer per copy
   // live across the key loop and steps them all by a tile
 #pragma unroll 1
-  for (int it = 0; it < kBlockK * kChunks / kThreads; ++it) {
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int r = i / kChunks;
     const int c = (i % kChunks) * 4;

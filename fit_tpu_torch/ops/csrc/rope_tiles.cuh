@@ -1,8 +1,7 @@
 // Tile helpers shared by the RoPE-attention forward (rope_attention.cu) and
-// backward (rope_attention_bwd.cu): 16-byte vector moves, the rotated and
-// plain tile loads from a row-strided matrix (the (B, T, 3C) qkv projection,
-// or one head of any (B, T, H, d) view), and the two per-warp FMA products
-// (scores = A B^T and acc += P V) that the fp32 backward is built from.
+// backward (rope_attention_bwd.cu): 16-byte vector moves and the rotated
+// tile load from a row-strided matrix (the (B, T, 3C) qkv projection, or
+// one head of any (B, T, H, d) view).
 //
 // A block has 4 warps and works on 64-row tiles; each warp owns 16 rows.
 // Tiles hold a head dim padded to DP (a multiple of 16) in shared memory;
@@ -25,31 +24,15 @@ constexpr int kBlockK = 64;  // keys per inner-loop tile (== kBlockQ: tile loade
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 16: one mma row tile per warp
-constexpr int kLdS = kBlockK + 4;  // fp32 score row stride, off the 32-bank period
 
-// Shared-memory row strides for a head dim padded to DP: the q/k/v tiles
-// (DP + 8 elements) and the fp32 accumulators (DP + 4 floats) are padded so
-// that consecutive rows start on different banks. A tile of probabilities
-// (or score gradients) in T is written over the fp32 scores it came from,
-// row for row.
+// The q/k/v tiles' shared-memory row stride for a head dim padded to DP:
+// DP + 8 elements, so that consecutive rows start on different banks.
 template <typename T, int DP>
 struct Strides {
   static constexpr int kTile = DP + 8;
-  static constexpr int kOut = DP + 4;
-  static constexpr int kP = kLdS * sizeof(float) / sizeof(T);
 };
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
 
 // 8 consecutive elements <-> 8 floats, as 16-byte vectors (the pointer is
 // 16-byte aligned: d and every column offset are multiples of 8 elements).
@@ -82,17 +65,6 @@ __device__ __forceinline__ void store8(bf16* p, const float (&o)[8]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(o[2 * j], o[2 * j + 1]);
   *reinterpret_cast<uint4*>(p) = u;
-}
-
-// Copies (or zeroes, when src is null) 8 elements as raw 16-byte words.
-template <typename T>
-__device__ __forceinline__ void copy8(T* dst, const T* src) {
-  constexpr int kWords = 8 * sizeof(T) / 16;
-  uint4 w[kWords];
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) w[k] = src ? reinterpret_cast<const uint4*>(src)[k] : make_uint4(0, 0, 0, 0);
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) reinterpret_cast<uint4*>(dst)[k] = w[k];
 }
 
 // Rows [row0, row0 + 64) of one head's q or k block (columns col0..col0+d),
@@ -135,60 +107,6 @@ __device__ __forceinline__ void load_rotated(T* dst, const T* src, const float* 
       for (int j = 0; j < 8; ++j) o[j] = 0.f;
     }
     store8(dst + r * Strides<T, DP>::kTile + c, o);
-  }
-}
-
-// Rows [row0, row0 + 64) of a (rows, row_stride) matrix, columns
-// col0..col0+d, into a (64, DP) tile, zero past `valid` rows and d columns
-// (a zero row keeps 0 * garbage out of the products).
-template <typename T, int DP>
-__device__ __forceinline__ void load_plain(T* dst, const T* src, int64_t row_stride, int col0,
-                                           int row0, int valid, int d) {
-  constexpr int kChunksPerRow = DP / 8;
-#pragma unroll
-  for (int it = 0; it < kBlockK * kChunksPerRow / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunksPerRow;
-    const int c = (i % kChunksPerRow) * 8;
-    const int row = row0 + r;
-    copy8(dst + r * Strides<T, DP>::kTile + c,
-          (row < valid && c < d) ? src + row * row_stride + col0 + c : nullptr);
-  }
-}
-
-// sw (16, kBlockK) fp32 = aw (16, DP) @ bs (kBlockK, DP)^T, for one warp,
-// on FMA dots (the fp32 backward only: bf16 runs on mma.sync,
-// rope_attention_mma.cuh and rope_attention_bwd_mma.cuh, and the fp32
-// forward on 3xTF32 mma.sync, rope_attention_tf32.cuh).
-template <typename T, int DP>
-__device__ __forceinline__ void warp_scores(float* sw, const T* aw, const T* bs) {
-  static_assert(std::is_same<T, float>::value, "the FMA schedule serves fp32 only");
-  constexpr int ld = Strides<T, DP>::kTile;
-  const int lane = threadIdx.x % 32;
-  for (int e = lane; e < kRowsPerWarp * kBlockK; e += 32) {
-    const int r = e / kBlockK;
-    const int j = e % kBlockK;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int c = 0; c < DP; ++c) acc += aw[r * ld + c] * bs[j * ld + c];
-    sw[r * kLdS + j] = acc;
-  }
-}
-
-// ow (16, DP) fp32 += pw (16, kBlockK) @ vs (kBlockK, DP), for one warp, on
-// FMA dots (fp32 only).
-template <typename T, int DP>
-__device__ __forceinline__ void warp_accumulate_pv(float* ow, const T* pw, const T* vs) {
-  static_assert(std::is_same<T, float>::value, "the FMA schedule serves fp32 only");
-  using S = Strides<T, DP>;
-  const int lane = threadIdx.x % 32;
-  for (int e = lane; e < kRowsPerWarp * DP; e += 32) {
-    const int r = e / DP;
-    const int c = e % DP;
-    float acc = ow[r * S::kOut + c];
-#pragma unroll 16
-    for (int j = 0; j < kBlockK; ++j) acc += pw[r * S::kP + j] * vs[j * S::kTile + c];
-    ow[r * S::kOut + c] = acc;
   }
 }
 

@@ -23,9 +23,10 @@ Two kernels:
   (``flash_launches``) and ``fit_tpu_torch.ops.attention.masked_attention``
   (RoPE off; its module's ``launches``).
 * K2, :func:`rope_attention_bwd` -> ``csrc/rope_attention_bwd.cu``: dqkv
-  (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T (bf16: a prologue into
-  scratch the wrapper allocates, then dk/dv and dq passes on ``mma.sync``,
-  ``csrc/rope_attention_bwd_mma.cuh``; fp32 on FMA dots).
+  (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T: a prologue into
+  scratch the wrapper allocates, then dk/dv and dq passes on ``mma.sync``
+  tensor-core tiles (bf16, ``csrc/rope_attention_bwd_mma.cuh``; fp32 as
+  three TF32 products each, ``csrc/rope_attention_bwd_tf32.cuh``).
 
 :func:`qkv_rope_attention` is a ``torch.autograd.Function`` over the pair
 when a gradient is wanted (K1 with lse, then K2), and K1 alone without lse
@@ -363,8 +364,7 @@ def rope_attention_bwd(
     """K2's wrapper: dqkv (B, T, 3C) in qkv's dtype. ``g`` is made
     contiguous and cast to qkv's dtype first. On a CPU tensor, or with
     ``plain``, the plain version; on a CUDA tensor the kernel (three
-    launches: a prologue, or delta in fp32, then dk/dv, then dq; counted as
-    one call)."""
+    launches: a prologue, then dk/dv, then dq; counted as one call)."""
     global bwd_launches
     if plain or qkv.device.type == "cpu":
         return rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lengths, scale, num_heads)
@@ -380,17 +380,15 @@ def rope_attention_bwd(
     return dqkv
 
 
-def _k2_scratch(qkv: torch.Tensor, num_heads: int) -> "tuple[torch.Tensor | None, torch.Tensor]":
-    """K2's scratch for a (B, T, 3C) projection: in bf16, ``rot`` (2, B, H,
-    T, d) bf16 (the rotated q * scale * log2(e), then the rotated k) and
-    ``stats`` (2, B, H, T rounded up to 64) fp32 (lse2, then delta, head
-    by head); in fp32, no ``rot`` and ``stats`` the (B, T, H) delta."""
+def _k2_scratch(qkv: torch.Tensor, num_heads: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """K2's scratch for a (B, T, 3C) projection: ``rot`` (2, B, H, T, d) in
+    qkv's dtype (the rotated q * scale * log2(e), then the rotated k; fp32
+    at the B/2 micro-batch, 64 x 256 x 12 x 64, is 100.7 MB) and ``stats``
+    (2, B, H, T rounded up to 64) fp32 (lse2, then delta, head by head)."""
     b, t, w = qkv.shape
     d = w // 3 // num_heads
-    if qkv.dtype != torch.bfloat16:
-        return None, torch.empty((b, t, num_heads), dtype=torch.float32, device=qkv.device)
     t_pad = -(-t // 64) * 64
-    rot = torch.empty((2, b, num_heads, t, d), dtype=torch.bfloat16, device=qkv.device)
+    rot = torch.empty((2, b, num_heads, t, d), dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((2, b, num_heads, t_pad), dtype=torch.float32, device=qkv.device)
     return rot, stats
 
@@ -398,7 +396,7 @@ def _k2_scratch(qkv: torch.Tensor, num_heads: int) -> "tuple[torch.Tensor | None
 def _k2_launch(qkv, g, out, lse, cos, sin, lengths, scale, num_heads, dqkv, rot, stats, passes=7) -> None:
     """Launches K2 on operands the caller has checked, writing ``dqkv`` and
     the scratch of :func:`_k2_scratch`. ``passes`` picks the launches (1:
-    prologue or delta, 2: dk/dv, 4: dq; 7 all), so that one pass can be
+    prologue, 2: dk/dv, 4: dq; 7 all), so that one pass can be
     timed alone after a whole call has filled the scratch. Raises if a
     launch fails; counts nothing."""
     b, t, w = qkv.shape
@@ -407,7 +405,7 @@ def _k2_launch(qkv, g, out, lse, cos, sin, lengths, scale, num_heads, dqkv, rot,
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.rope_attention_bwd(
             qkv.data_ptr(), g.data_ptr(), out.data_ptr(), lse.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            lengths.data_ptr(), dqkv.data_ptr(), None if rot is None else rot.data_ptr(), stats.data_ptr(),
+            lengths.data_ptr(), dqkv.data_ptr(), rot.data_ptr(), stats.data_ptr(),
             b, t, num_heads, w // 3 // num_heads, scale, int(qkv.dtype == torch.bfloat16), passes, stream,
         )
     if err != 0:

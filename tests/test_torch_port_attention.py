@@ -265,6 +265,18 @@ def test_inference_takes_the_forward_without_lse(monkeypatch):
     assert out.grad_fn is not None
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k2_scratch_layout(dtype):
+    """K2's scratch in both dtypes: the rotated q and k head-major (2, B, H,
+    T, d) in the activations' dtype, lse2 and delta (2, B, H, T rounded up
+    to 64) in fp32."""
+    qkv = torch.zeros((3, 100, 3 * 4 * 16), dtype=dtype)
+    rot, stats = ra._k2_scratch(qkv, 4)
+    assert (tuple(rot.shape), rot.dtype) == ((2, 3, 4, 100, 16), dtype)
+    assert (tuple(stats.shape), stats.dtype) == ((2, 3, 4, 128), torch.float32)
+    assert rot.is_contiguous() and stats.is_contiguous() and rot.device == stats.device == qkv.device
+
+
 def test_backward_argument_checks():
     """K2's checks on g, out and lse, device-agnostic (CPU tensors here)."""
     qkv, _, lens, cos, sin, g = _port_inputs(5, 16, (16, 16))

@@ -441,7 +441,7 @@ def test_fp32_k1_launches_repeat_bit_for_bit(cuda_device, layout, rope):
     ],
 )
 def test_k2_from_the_fp32_k1_lse_matches_autograd(cuda_device, h, d, t, lengths):
-    """The fp32 K2 (FMA dots) fed by the 3xTF32 K1's out and lse against
+    """The fp32 K2 (3xTF32 passes) fed by the 3xTF32 K1's out and lse against
     the exact VJP (autograd through the fp32 plain forward): dq, dk and dv
     each within 1e-4 of max(1, max |plain|), K2's fp32 bar."""
     qkv, cos, sin, lens = make_inputs(14, h, d, t, lengths, cuda_device, torch.float32)
@@ -456,9 +456,10 @@ def test_k2_from_the_fp32_k1_lse_matches_autograd(cuda_device, h, d, t, lengths)
         assert (part - ref).abs().max().item() <= GRAD_REL[torch.float32] * max(1.0, ref.abs().max().item()), f"d{'qkv'[i]}"
 
 
-# The bf16 K2 (the prologue and the two mma.sync passes) over its range:
-# every compiled padding (d = 72 pads to 80) and T from 1 to 4096, each batch
-# holding a full row, one whose last key tile is partial and a one-key row.
+# K2 (the prologue and the two mma.sync passes, bf16 and fp32) over its
+# range: every compiled padding (d = 72 pads to 80) and T from 1 to 4096,
+# each batch holding a full row, one whose last key tile is partial and a
+# one-key row.
 K2_T_LENGTHS = [
     (1, (1, 1)),
     (32, (32, 17, 1)),
@@ -470,11 +471,14 @@ K2_T_LENGTHS = [
 ]
 
 
-def k2_case(h, d, t, lengths, device, seed):
-    """bf16 inputs of K2 with K1's out and lse, and the plain version's dqkv."""
-    qkv, cos, sin, lens = make_inputs(seed, h, d, t, lengths, device, torch.bfloat16)
+K2_DTYPES = [torch.bfloat16, torch.float32]
+
+
+def k2_case(h, d, t, lengths, device, seed, dtype=torch.bfloat16):
+    """Inputs of K2 in ``dtype`` with K1's out and lse, and the plain version's dqkv."""
+    qkv, cos, sin, lens = make_inputs(seed, h, d, t, lengths, device, dtype)
     gen = torch.Generator(device).manual_seed(seed)
-    g = torch.randn((len(lengths), t, h * d), generator=gen, device=device).to(torch.bfloat16)
+    g = torch.randn((len(lengths), t, h * d), generator=gen, device=device).to(dtype)
     out, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
     want = ra.rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lens, d**-0.5, h).float()
     return (qkv, g, out, lse, cos, sin, lens, d**-0.5, h), want
@@ -483,15 +487,17 @@ def k2_case(h, d, t, lengths, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,lengths", K2_T_LENGTHS, ids=[f"T{t}" for t, _ in K2_T_LENGTHS])
 @pytest.mark.parametrize("d", [16, 32, 64, 72, 128])
-def test_bf16_k2_matches_plain_version(cuda_device, d, t, lengths):
-    """dq, dk and dv each within 3e-2 of max |plain|; at T 1 every row has
-    one key, so the exact dq and dk are 0 (a softmax over one key has no
-    gradient in its score) and rounding is all there is: they are held to
-    3e-2 of max |plain dv|, the gradient's scale. Keys at or past a row's
-    length get exactly 0, though the output comes from torch.empty over
-    memory just filled with NaN."""
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=["bf16", "fp32"])
+def test_k2_matches_plain_version(cuda_device, dtype, d, t, lengths):
+    """bf16: dq, dk and dv each within 3e-2 of max |plain|; at T 1 every
+    row has one key, so the exact dq and dk are 0 (a softmax over one key
+    has no gradient in its score) and rounding is all there is: they are
+    held to 3e-2 of max |plain dv|, the gradient's scale. fp32: each within
+    1e-4 of max(1, max |plain|). Keys at or past a row's length get exactly
+    0, though the output comes from torch.empty over memory just filled
+    with NaN."""
     h = 2 if t >= 1024 else 4
-    args, want = k2_case(h, d, t, lengths, cuda_device, seed=d + t)
+    args, want = k2_case(h, d, t, lengths, cuda_device, seed=d + t, dtype=dtype)
     torch.full_like(args[0], float("nan"))  # freed at once: the caching allocator gives K2's output this block
     ra.reset_launches()
     got = ra.rope_attention_bwd(*args).float()
@@ -501,8 +507,11 @@ def test_bf16_k2_matches_plain_version(cuda_device, d, t, lengths):
     dv_scale = want[..., 2 * c :].abs().max().item()
     for i in range(3):
         part, ref = got[..., i * c : (i + 1) * c], want[..., i * c : (i + 1) * c]
-        denom = dv_scale if t == 1 and i < 2 else ref.abs().max().item()
-        assert (part - ref).abs().max().item() <= 3e-2 * denom, f"d{'qkv'[i]}"
+        if dtype == torch.bfloat16:
+            bar = 3e-2 * (dv_scale if t == 1 and i < 2 else ref.abs().max().item())
+        else:
+            bar = GRAD_REL[torch.float32] * max(1.0, ref.abs().max().item())
+        assert (part - ref).abs().max().item() <= bar, f"d{'qkv'[i]}"
     for i, n in enumerate(lengths):
         assert not got[i, n:, c:].any()
 
@@ -516,13 +525,31 @@ def test_bf16_k2_matches_plain_version(cuda_device, d, t, lengths):
     ],
     ids=["B2-T256", "XL-T1024"],
 )
-def test_bf16_k2_launches_repeat_bit_for_bit(cuda_device, h, d, t, lengths):
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=["bf16", "fp32"])
+def test_k2_launches_repeat_bit_for_bit(cuda_device, dtype, h, d, t, lengths):
     """No atomics: two K2 calls on the same inputs write the same bits."""
-    args, _ = k2_case(h, d, t, lengths, cuda_device, seed=13)
+    args, _ = k2_case(h, d, t, lengths, cuda_device, seed=13, dtype=dtype)
     first = ra.rope_attention_bwd(*args)
     second = ra.rope_attention_bwd(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=["bf16", "fp32"])
+@pytest.mark.parametrize("h,d,t,lengths", [(12, 64, 256, (256, 200, 130, 64, 1, 255, 129, 33) * 8),
+                                           (2, 72, 2304, (2304, 1500, 1))], ids=["B2-T256", "XL-T2304"])
+def test_k2_passes_one_by_one_give_a_whole_call(cuda_device, dtype, h, d, t, lengths):
+    """The prologue, the dk/dv pass and the dq pass launched one at a time
+    (each reading what the earlier ones wrote into the scratch) write the
+    bits of one whole call."""
+    args, _ = k2_case(h, d, t, lengths, cuda_device, seed=17, dtype=dtype)
+    whole = ra.rope_attention_bwd(*args)
+    by_pass, scratch = torch.empty_like(args[0]), ra._k2_scratch(args[0], h)
+    for bit in (1, 2, 4):
+        ra._k2_launch(*args, by_pass, *scratch, passes=bit)
+    torch.cuda.synchronize()
+    assert torch.equal(by_pass, whole)
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -1,8 +1,9 @@
-"""Why the fp32 K1 takes three TF32 products per product (3xTF32).
+"""Why the fp32 K1 and K2 take three TF32 products per product (3xTF32).
 
-The fp32 K1 (``fit_tpu_torch/ops/csrc/rope_attention_tf32.cuh``) runs both
-of its products on TF32 tensor cores. This file emulates that arithmetic in
-plain PyTorch on the CPU and pins the design's accuracy argument:
+The fp32 K1 (``fit_tpu_torch/ops/csrc/rope_attention_tf32.cuh``) and the
+fp32 K2 (``rope_attention_bwd_tf32.cuh``) run every product on TF32 tensor
+cores. This file emulates that arithmetic in plain PyTorch on the CPU and
+pins the design's accuracy argument:
 
 - ``cvt.rna.tf32.f32`` rounds an fp32 value to 10 mantissa bits, to
   nearest with ties away from zero (:func:`tf32`);
@@ -18,6 +19,15 @@ over the keys below each row's length, softmax in the exp2 domain, P as
 fp32 into the second product; inputs seeded with numpy as in
 ``test_torch_port_attention.py``, at the contract size (hidden 96, 6 heads,
 d 16, T 64) and at FiT-XL's d 72. Valid query rows only.
+
+The backward is K2's seven products (S^T, dv, dP^T, dk in the dk/dv pass;
+S, dP, dq in the dq pass; S and dP are the same values in both, so each is
+emulated once), fed the emulated forward's output and lse2 as K2 is fed
+K1's: P = exp2(S - lse2) and dS = P (dP - delta) formed in fp32 and split
+as A operands after the subtraction, the lo_a lo_b term dropped from every
+product. Three products hold dq, dk and dv within 1e-5 of a float64 VJP
+(at most 5.2e-6 here, beside fp32's own 8.3e-6); one product misses 1e-4
+on each of them. Every query row takes part, padded rows included.
 """
 
 import numpy as np
@@ -119,3 +129,55 @@ def test_one_tf32_product_misses_the_fp32_bar(h, d, t, lengths):
     (q, k, v), lens = inputs(h, d, t, lengths)
     err1 = valid_rows_err(attention(q, k, v, lens, products=1), attention(q, k, v, lens), lens)
     assert err1 > 1e-4, err1  # the emulation gives 7.9-8.5e-4: one TF32 product cannot serve the fp32 kernel
+
+
+def attention_vjp(q, k, v, g, lengths, products=None):
+    """K2's VJP on rotated (B, H, T, d) heads for the upstream ``g``: (dq_r,
+    dk_r, dv). ``products`` None in float64 (the reference, from a float64
+    forward), 0 in plain fp32 (the plain version's formulas), else in fp32
+    with each product emulated on the tensor cores and the forward's out
+    and lse2 from the same products."""
+    d, t = q.shape[-1], q.shape[-2]
+    q_mul = d**-0.5 * ra.LOG2_E
+    valid = (torch.arange(t)[None, :] < lengths[:, None])[:, None, None, :]
+    if products is None:
+        q, k, v, g = q.double(), k.double(), v.double(), g.double()
+
+    def mm(a, b):
+        return a @ b if not products else matmul(a, b, products)
+
+    qs = q * q_mul
+    s = mm(qs, k.transpose(-1, -2)).masked_fill(~valid, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(s - m).sum(-1, keepdim=True))
+    p = torch.exp2(s - lse)
+    delta = (g * mm(p, v)).sum(-1, keepdim=True)
+    dv = mm(p.transpose(-1, -2), g)
+    ds = p * (mm(g, v.transpose(-1, -2)) - delta)
+    return mm(ds, k) * d**-0.5, mm(ds.transpose(-1, -2), qs) / ra.LOG2_E, dv
+
+
+def grad_errs(h, d, t, lengths, products) -> "list[float]":
+    """max |got - ref| / max(1, max |ref|) of dq, dk and dv against the
+    float64 VJP, as chip_smoke.py holds the fp32 K2 against its plain version."""
+    (q, k, v), lens = inputs(h, d, t, lengths)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=q.shape).astype(np.float32))
+    ref = attention_vjp(q, k, v, g, lens)
+    got = attention_vjp(q, k, v, g, lens, products)
+    return [(a.double() - r).abs().max().item() / max(1.0, r.abs().max().item()) for a, r in zip(got, ref)]
+
+
+@pytest.mark.parametrize("h,d,t,lengths", CASES, ids=IDS)
+def test_three_tf32_products_hold_fp32_accuracy_backward(h, d, t, lengths):
+    err3 = grad_errs(h, d, t, lengths, products=3)
+    fp32 = grad_errs(h, d, t, lengths, products=0)
+    for name, e3, e32 in zip(("dq", "dk", "dv"), err3, fp32):
+        assert e3 <= 1e-5, (name, e3)  # the emulation gives 4e-8 to 5.2e-6
+        assert e3 <= 10 * e32, (name, e3, e32)  # fp32's own error: 1.1e-7 to 8.3e-6
+
+
+@pytest.mark.parametrize("h,d,t,lengths", CASES, ids=IDS)
+def test_one_tf32_product_misses_the_fp32_bar_backward(h, d, t, lengths):
+    err1 = grad_errs(h, d, t, lengths, products=1)
+    # the emulation gives dq 1.1-2.1e-3, dk 1.6-9.0e-3, dv 2.0-2.2e-4
+    assert all(e > 1e-4 for e in err1), err1
