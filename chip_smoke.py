@@ -97,9 +97,24 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      128 on phase 6's synthetic latents (ms/step), each run's launches
      asserted; and one FiT-B/2 learn_sigma loss (RESCALED_MSE: mse + vb)
      forward and backward through the kernels against their plain
-     versions at phase 6's bars.
+     versions at phase 6's bars;
+  10. eval: ``python -m fit_tpu_torch.cli.sample --vae-checkpoint`` (a
+     process) samples 64 PNGs at 256^2 with DPM-Solver++ from phase 8's
+     FiT-XL/2 checkpoint and SD-VAE (K1's launches asserted, the ``eval``
+     path); ``python -m fit_tpu_torch.cli.fid`` (processes) writes the
+     statistics of 64 synthetic reference images with a seeded full-width
+     InceptionV3 (pytorch-fid's names, 1008-way fc) and prints FID, sFID,
+     IS and Precision/Recall of the samples against them (finite numbers
+     checked); the card's pool3, spatial and probs against the CPU's at
+     256^2 and 512^2 (1e-4 of max |CPU|, TF32 off); feature img/s at batch
+     64 beside the fp32 bound and the feature time of a 50k-image FID; the
+     MFU of phase 4's sampling step and phase 6's optimizer step
+     (``utils/flops.py``; model FLOPs, 3 x the forward for a training
+     step, with the HFU that also counts remat's second forward beside
+     it); and the native packer's batches/s against the numpy loader's on
+     phase 6's latents (the same bytes; median and spread of 3 runs).
 The line before the last is a JSON object with each kernel's numbers
-(launches by path: sample, serve, train, dit, cli, pixels; an entry's
+(launches by path: sample, serve, train, dit, cli, pixels, eval; an entry's
 "fp32" numbers carry their own launches); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -127,6 +142,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from fit_tpu_torch.utils.flops import peak_flops, peak_hbm_bw
 
 STEPS = 10
 CFG_SCALE = 1.5
@@ -217,12 +234,14 @@ def attention_case(ra, rope_freqs_2d, h, d, t, lengths, dtype, seed, yardstick=F
     return err, ms, plain_ms, dev
 
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-# Dense bf16 tensor cores; fp32-accurate products as three TF32 products
-# (3xTF32, the fp32 K1's scheme) at 495 TFLOP/s. The fp32 FMA rate, the
+# Bounds divide by the H100 SXM's data-sheet peaks in utils/flops.py:
+# dense bf16 tensor cores; fp32-accurate products as three TF32 products
+# (3xTF32, the fp32 K1's scheme) at the TF32 rate. The fp32 FMA rate, the
 # basis before it, is printed beside every fp32 attention bound.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
-FP32_FMA_FLOPS = 67e12
+H100 = "NVIDIA H100 80GB HBM3"
+HBM_BYTES_PER_S = peak_hbm_bw(H100)
+PEAK_FLOPS = {torch.bfloat16: peak_flops(H100, "bfloat16"), torch.float32: peak_flops(H100, "tf32") / 3}
+FP32_FMA_FLOPS = peak_flops(H100, "float32")
 # K2 against its plain version, per tensor dq / dk / dv: max abs error over
 # max |plain| in bf16 (bf16 rounding of the rotated q/k, of p, of ds and of
 # the stored gradient), and over max(1, max |plain|) in fp32.
@@ -570,7 +589,8 @@ def trainer_phase(kernel_modules, smi):
     directory as fit(4), then a fresh Trainer that resumes to step 6; then 3
     steps of bucket packing; then 3 pad-packed steps in fp32. Asserts the
     resumed loss stream and every run's launch counts; returns this path's
-    launch counts and the fp32 run's K2 launches."""
+    launch counts, the fp32 run's K2 launches and the bf16 pad run's
+    seconds per optimizer step."""
     import shutil
     from pathlib import Path
 
@@ -663,7 +683,7 @@ def trainer_phase(kernel_modules, smi):
         raise AssertionError("the resumed run did not reproduce the straight run's loss stream")
     if set(fp32) != set(range(1, FP32_TRAIN_STEPS + 1)):
         raise AssertionError(f"the fp32 Trainer run logged steps {sorted(fp32)}")
-    return totals, fp32_counts["rope_attention_bwd"]
+    return totals, fp32_counts["rope_attention_bwd"], step_s
 
 
 def seeded_fit_xl(create_fit, gen):
@@ -1290,17 +1310,9 @@ def serve_cli_phase(artifact: Path, vae_dir: "Path | None" = None):
 
 
 def cli_phase(kernel_modules, smi, ddim_step_ms):
-    """Phase 8, the command line. Returns its launch counts (all CLI runs
-    in this process) and deletes what it wrote under build/."""
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
-    CLI_DIR.mkdir(parents=True)
-    try:
-        return _cli_phase(kernel_modules, smi, ddim_step_ms)
-    finally:
-        shutil.rmtree(CLI_DIR, ignore_errors=True)
-
-
-def _cli_phase(kernel_modules, smi, ddim_step_ms):
+    """Phase 8, the command line, writing under CLI_DIR (its checkpoint and
+    VAE serve phase 10 too; main deletes the directory after phase 10).
+    Returns its launch counts (all CLI runs in this process)."""
     from fit_tpu_torch import sampling as sampler_mod
     from fit_tpu_torch.cli.k1_fp32_ab import fp32_forward_profile
     from fit_tpu_torch.cli import quantize as cli_quantize
@@ -1587,14 +1599,9 @@ def vae_cli_phase(kernel_modules, run_cli, common, vae_dir, dpm_latents, mixed_l
 
     imgs, lat_dir = CLI_DIR / "imgs", CLI_DIR / "latents"
     shapes = write_image_tree(imgs, 8, seed=3)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "fit_tpu_torch.cli.preprocess", "--dataset-path", str(imgs),
-                           "--latent-folder", str(lat_dir), "--vae-checkpoint", str(vae_dir), "--batch-size", "4",
-                           "--device", "cuda"], cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-                          timeout=600)
-    pre_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"cli.preprocess exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    _, pre_s = run_module("fit_tpu_torch.cli.preprocess", ["--dataset-path", imgs, "--latent-folder", lat_dir,
+                                                           "--vae-checkpoint", vae_dir, "--batch-size", 4,
+                                                           "--device", "cuda"], "cli.preprocess")
     got = {str(p.relative_to(lat_dir)): np.load(p) for p in lat_dir.rglob("*.npy")}
     want = {k: (4, resize_dims(w, h)[1] // 8, resize_dims(w, h)[0] // 8) for k, (w, h) in shapes.items()}
     if {k: v.shape for k, v in got.items()} != want or not (lat_dir / "path.json").exists():
@@ -1612,15 +1619,15 @@ def vae_cli_phase(kernel_modules, run_cli, common, vae_dir, dpm_latents, mixed_l
     )
 
 
-def write_image_tree(root: Path, n: int, seed: int) -> dict:
+def write_image_tree(root: Path, n: int, seed: int, sizes=IMAGE_SIZES) -> dict:
     """``n`` smooth random RGB PNGs in two class folders, cycling over
-    IMAGE_SIZES. Returns {relative latent path: (w, h)}."""
+    ``sizes`` ((w, h) pairs). Returns {relative latent path: (w, h)}."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     shapes = {}
     for i in range(n):
-        w, h = IMAGE_SIZES[i % len(IMAGE_SIZES)]
+        w, h = sizes[i % len(sizes)]
         coarse = rng.integers(0, 256, size=(h // 32 + 1, w // 32 + 1, 3), dtype=np.uint8)
         img = np.asarray(Image.fromarray(coarse).resize((w, h), resample=Image.BICUBIC), dtype=np.int16)
         img = np.clip(img + rng.integers(-8, 9, size=img.shape), 0, 255).astype(np.uint8)
@@ -1640,7 +1647,6 @@ VAE_REL_RMS = 5e-2  # bf16 against fp32, decode and encode: the guided bf16 forw
 ENCODE_IMAGES = 64
 PIXEL_BATCH, PIXEL_ACCUM, PIXEL_STEPS = 32, 2, 2  # a stated cut: 64 latents, global batch 32 = 2 x 16, 2 steps
 MLP_STEPS = 3
-FP32_PEAK, BF16_PEAK = 67e12, 989e12  # H100 SXM dense FLOP/s, fp32 outside the tensor cores and bf16
 
 
 def write_train_latents(root: Path) -> None:
@@ -1866,7 +1872,7 @@ def _pixels_phase(kernel_modules, smi, fit_latents, fit_mixed, dit_latents):
             with torch.inference_mode():
                 out, sec, peak = timed_runs(lambda: [vae.decode(g) for g in groups])
             outs[dtype] = out
-            peak_rate = BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK
+            peak_rate = PEAK_FLOPS[torch.bfloat16] if dtype == torch.bfloat16 else FP32_FMA_FLOPS
             line.append(f"{str(dtype).split('.')[1]} {sec * 1e3:.2f} ms ({n / sec:.2f} img/s, {flops / sec / 1e12:.1f} "
                         f"TFLOP/s, bound {flops / peak_rate * 1e3:.2f} ms by operations), peak {peak / 2**30:.2f} GiB")
         for o, g in zip(outs[torch.float32], groups):
@@ -1947,6 +1953,258 @@ def _pixels_phase(kernel_modules, smi, fit_latents, fit_mixed, dit_latents):
     torch.cuda.empty_cache()
     learn_sigma_check(kernel_modules)
     return totals
+
+
+# 10. eval: FiT-XL/2 samples -> PNGs -> InceptionV3 features -> FID, sFID,
+# IS and Precision/Recall, as processes, on a seeded full-width InceptionV3
+# (pytorch-fid's module names, 1008-way fc); the card's features against
+# the CPU's, feature throughput against its bound, the MFU of phases 4 and 6
+# from utils/flops.py, and the native packer against the numpy loader
+EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
+EVAL_IMAGES = 64  # samples, reference images, and the throughput batch
+INCEPTION_SEED = 11
+EVAL_FEATURE_REL = 1e-4  # card vs CPU: max abs error over max |CPU|, fp32 with TF32 off
+EVAL_COMPARE = 8  # images in the card-vs-CPU check, at 256^2 and 512^2
+FID_IMAGES = 50_000  # a FID run's sample count
+LOADER_BATCHES = 16  # four epochs of phase 6's 512 latents at batch 128, a timed run
+LOADER_REPEATS = 3  # timed runs a path, native and numpy alternating
+SUBPROCESS_S = 600
+_METRIC_LINES = {
+    "FID": r"^FID: (\S+)$", "sFID": r"^sFID: (\S+)$", "IS": r"^Inception Score: (\S+) \+/- (\S+)$",
+    "PR": r"^Precision: (\S+)  Recall: (\S+)$",
+}
+
+
+def seeded_inception_state(seed: int = INCEPTION_SEED, num_classes: int = 1008) -> dict:
+    """A full-width InceptionV3 state dict with pytorch-fid's module names
+    (``<conv>.conv.weight``, ``<conv>.bn.*``, ``fc.*``) and a
+    ``num_classes``-way fc, drawn on the host from numpy seed ``seed``:
+    He-normal convolutions and BatchNorm near identity, as
+    ``tests/test_inception.py``'s fake state dict draws them."""
+    from fit_tpu_torch.eval.inception import InceptionV3
+
+    with torch.device("meta"):
+        convs = {n: tuple(m.weight.shape) for n, m in InceptionV3().named_modules() if isinstance(m, torch.nn.Conv2d)}
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, (o, i, kh, kw) in convs.items():
+        sd[f"{name}.conv.weight"] = rng.normal(size=(o, i, kh, kw)) * np.sqrt(2.0 / (i * kh * kw))
+        sd[f"{name}.bn.weight"] = 1.0 + 0.1 * rng.normal(size=(o,))
+        sd[f"{name}.bn.bias"] = 0.05 * rng.normal(size=(o,))
+        sd[f"{name}.bn.running_mean"] = 0.05 * rng.normal(size=(o,))
+        sd[f"{name}.bn.running_var"] = rng.uniform(0.5, 1.5, size=(o,))
+    sd["fc.weight"] = rng.normal(size=(num_classes, 2048)) * 0.02
+    sd["fc.bias"] = 0.01 * rng.normal(size=(num_classes,))
+    return {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def inception_flops(model) -> float:
+    """The floating-point operations of one image through the network's
+    convolutions and fc head (2 per multiply-add), counted by forward hooks
+    on one pass at 299^2 on the model's device; the resize and the pools
+    are left out (bytes, not operations)."""
+    total = [0.0]
+
+    def conv(mod, _inp, out):
+        total[0] += 2.0 * out.numel() * (mod.in_channels // mod.groups) * mod.kernel_size[0] * mod.kernel_size[1]
+
+    def dense(mod, _inp, out):
+        total[0] += 2.0 * out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else dense)
+             for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.inference_mode():
+            x = torch.zeros((1, 3, 299, 299), device=model.Conv2d_1a_3x3.weight.device)
+            model.logits(model(x)[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def fit_mfu(step_s: float, flops: float, dtype: str = "bfloat16") -> "tuple[float | None, float | None]":
+    """(MFU, the peak it divides by) of ``flops`` done in ``step_s`` on this
+    card, from ``fit_tpu_torch.utils.flops``; (None, None) for a card the
+    peak table does not know."""
+    from fit_tpu_torch.utils.flops import peak_flops
+
+    peak = peak_flops(torch.cuda.get_device_name(0), dtype)
+    return (flops / step_s / peak, peak) if peak else (None, None)
+
+
+def run_module(module: str, args, what: str) -> "tuple[str, float]":
+    """``python -m <module> <args>`` from the repository's root; its stdout
+    and seconds on the host clock. Raises if it exits with another code than 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *map(str, args)], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=SUBPROCESS_S)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return proc.stdout, secs
+
+
+def parse_metric_lines(out: str) -> dict:
+    """cli.fid's printed metrics -> {"FID": [x], "sFID": [x], "IS": [mean, std],
+    "PR": [precision, recall]}, for the lines present."""
+    found = {}
+    for key, pattern in _METRIC_LINES.items():
+        m = re.search(pattern, out, re.M)
+        if m:
+            found[key] = [float(g) for g in m.groups()]
+    return found
+
+
+def eval_phase(kernel_modules, smi, sample_step_ms, train_step_s):
+    """Phase 10. Needs phase 8's checkpoint and VAE under CLI_DIR. Returns
+    the launch counts of its main path (the cli.sample process) and
+    deletes what it wrote under build/."""
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    EVAL_DIR.mkdir(parents=True)
+    try:
+        return _eval_phase(kernel_modules, smi, sample_step_ms, train_step_s)
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+
+
+def _eval_phase(kernel_modules, smi, sample_step_ms, train_step_s):
+    import scipy
+
+    from fit_tpu_torch.data.dataset import LatentFolderDataset, LatentLoader
+    from fit_tpu_torch.data.native import get_lib
+    from fit_tpu_torch.data.profile_loaders import profile_loader
+    from fit_tpu_torch.eval.inception import convert_torch_inception, make_suite_extractor
+    from fit_tpu_torch.utils.flops import fit_forward_flops
+
+    print(f"phase 10 on: {smi}; scipy {scipy.__version__} on the card's host (frechet_distance's sqrtm); "
+          f"TF32 off in the Inception forward", flush=True)
+    # 10a. the seeded Inception as a .pth, and a reference tree of 256^2 images
+    state = seeded_inception_state()
+    weights = EVAL_DIR / "pt_inception_seeded.pth"
+    torch.save(state, weights)
+    ref_dir, samples, stats = EVAL_DIR / "reference", EVAL_DIR / "samples", EVAL_DIR / "reference_stats.npz"
+    write_image_tree(ref_dir, EVAL_IMAGES, seed=12, sizes=[(256, 256)])
+
+    # 10b. cli.sample as a process: phase 8's FiT-XL/2 reference checkpoint (its EMA) and SD-VAE -> PNGs
+    out, sample_s = run_module("fit_tpu_torch.cli.sample", [
+        "--torch-checkpoint", CLI_DIR / "last.ckpt", "--model", "FiT-XL/2", "--sampler", "dpm",
+        "--num-sampling-steps", STEPS, "--cfg-scale", CFG_SCALE, "--num-samples", EVAL_IMAGES,
+        "--batch-size", EVAL_IMAGES, "--image-height", 256, "--image-width", 256,
+        "--vae-checkpoint", CLI_DIR / "vae", "--output-dir", samples, "--device", "cuda"], "cli.sample")
+    found = [line for line in out.splitlines() if line.startswith("[sample] kernel launches: ")]
+    if not found:
+        raise AssertionError(f"cli.sample printed no launch counts: {out[-2000:]}")
+    launches = json.loads(found[-1].split(": ", 1)[1])
+    expect_launches("cli.sample -> PNGs", launches, rope_attention_fwd=DEPTH * STEPS)  # one batch, one forward a step
+    pngs = sorted(samples.glob("generated_image_*.png"))
+    if len(pngs) != EVAL_IMAGES or any(png_pixels(f).shape != (256, 256, 3) for f in pngs):
+        raise AssertionError(f"cli.sample wrote {len(pngs)} PNGs")
+    batch_line = next(line for line in out.splitlines() if line.startswith("batch 1/1"))
+
+    # 10c. cli.fid as processes: the reference's statistics, then the whole suite on the samples
+    common = ["--inception-weights", weights, "--batch-size", EVAL_IMAGES, "--device", "cuda"]
+    _, save_s = run_module("fit_tpu_torch.cli.fid", ["--samples-dir", ref_dir, "--save-stats", stats] + common,
+                           "cli.fid --save-stats")
+    saved = np.load(stats)
+    if set(saved.files) != {"mu", "sigma", "feats", "mu_s", "sigma_s"} or saved["feats"].shape != (EVAL_IMAGES, 2048):
+        raise AssertionError(f"cli.fid --save-stats wrote {saved.files}")
+    out, metric_s = run_module("fit_tpu_torch.cli.fid", ["--samples-dir", samples, "--reference", stats,
+                                                         "--metrics", "fid,sfid,is,pr"] + common, "cli.fid --metrics")
+    metrics = parse_metric_lines(out)
+    if set(metrics) != set(_METRIC_LINES) or not all(np.isfinite(v).all() for v in metrics.values()):
+        raise AssertionError(f"cli.fid printed {metrics}: {out[-2000:]}")
+    print(f"eval: cli.sample (a process) FiT-XL/2 dpm {STEPS} steps cfg {CFG_SCALE}, {EVAL_IMAGES} PNGs at 256^2 "
+          f"through the SD-VAE in {sample_s:.2f} s ({batch_line.split(': ', 1)[1]}; start-up and the 5 GiB load "
+          f"included), K1 launches {launches['rope_attention_fwd']}; cli.fid --save-stats on {EVAL_IMAGES} reference "
+          f"images {save_s:.2f} s; cli.fid --metrics fid,sfid,is,pr {metric_s:.2f} s: FID {metrics['FID'][0]:.4f}, "
+          f"sFID {metrics['sFID'][0]:.4f}, IS {metrics['IS'][0]:.4f} +/- {metrics['IS'][1]:.4f}, precision "
+          f"{metrics['PR'][0]:.4f} recall {metrics['PR'][1]:.4f} (seeded Inception, random FiT weights: the numbers "
+          f"show the path runs, not sample quality)", flush=True)
+
+    # 10d. the card's features against the same module's CPU path
+    model = convert_torch_inception(state)
+    del state
+    rng = np.random.default_rng(13)
+    rels = {}
+    for side in (256, 512):
+        x = rng.uniform(size=(EVAL_COMPARE, 3, side, side)).astype(np.float32)
+        want = make_suite_extractor(model, spatial=True, probs=True, device="cpu")(x)
+        got = make_suite_extractor(model, spatial=True, probs=True, device="cuda")(x)
+        for k in want:
+            rels[(side, k)] = float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+    print("eval features, card vs CPU (fp32, TF32 off, variant fid, " + f"{EVAL_COMPARE} images): " + ", ".join(
+        f"{side}^2 {k} {r:.3e}" for (side, k), r in rels.items()) + f" (max abs over max |CPU|, tol "
+        f"{EVAL_FEATURE_REL:g})", flush=True)
+    if not max(rels.values()) <= EVAL_FEATURE_REL:
+        raise AssertionError("the card's Inception features disagree with the CPU's")
+
+    # 10e. feature throughput at batch 64: one trunk pass for pool3, spatial and the fc head, as cli.fid runs it
+    card = model.cuda()
+    flops_img = inception_flops(card)
+    bound_s = flops_img * EVAL_IMAGES / FP32_FMA_FLOPS
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rates = {}
+    for side in (256, 512):
+        x = torch.rand((EVAL_IMAGES, 3, side, side), device="cuda", generator=gen)
+        with torch.inference_mode():
+            _, sec, peak = timed_runs(lambda: card.logits(card(x, "fid", spatial=True)[0]), runs=5)
+        rates[side] = EVAL_IMAGES / sec
+        print(f"eval features at batch {EVAL_IMAGES}, {side}^2 inputs (resize to 299^2 included): {sec * 1e3:.2f} ms "
+              f"a batch, {rates[side]:.1f} img/s, {flops_img * EVAL_IMAGES / sec / 1e12:.2f} TFLOP/s; bound "
+              f"{bound_s * 1e3:.2f} ms by operations ({flops_img / 1e9:.3f} GFLOP an image over {FP32_FMA_FLOPS / 1e12:.0f} TFLOP/s fp32; "
+              f"{bound_s / sec:.1%} of it); peak {peak / 2**30:.2f} GiB above the weights; a {FID_IMAGES}-image FID "
+              f"takes {FID_IMAGES / rates[side]:.1f} s of feature time on this card; {smi}", flush=True)
+    del card, model
+    torch.cuda.empty_cache()
+
+    # 10f. MFU of phase 4's guided sampling step and phase 6's optimizer step
+    fl_sample = fit_forward_flops(XL_HIDDEN, DEPTH, 16, t=256, batch=2 * BATCH)  # CFG: conditional and null rows
+    mfu_sample, peak = fit_mfu(sample_step_ms / 1e3, fl_sample.total)
+    fl_train = fit_forward_flops(768, B2_DEPTH, 12, t=256, batch=TRAIN_BATCH)
+    train_flops = fl_train.total * 3  # model FLOPs: forward and backward (2x); recomputation is not counted
+    mfu_train, _ = fit_mfu(train_step_s, train_flops)
+    hfu_train, _ = fit_mfu(train_step_s, fl_train.total * 4)  # hardware FLOPs: remat's second forward too
+    if mfu_sample is None:
+        print(f"mfu: not measured ({torch.cuda.get_device_name(0)!r} is not in utils/flops.py's peak table)", flush=True)
+    else:
+        print(f"mfu (utils/flops.py, bf16 peak {peak / 1e12:.0f} TFLOP/s dense): phase 4's guided FiT-XL/2 256^2 DDIM "
+              f"step at batch {BATCH} ({2 * BATCH} rows x T 256, {fl_sample.total / 1e12:.3f} TFLOP) in "
+              f"{sample_step_ms:.2f} ms: mfu {mfu_sample:.4f}; phase 6's FiT-B/2 optimizer step, global batch "
+              f"{TRAIN_BATCH} x T 256 with remat ({train_flops / 1e12:.3f} TFLOP = 3 x the forward's "
+              f"{fl_train.total / 1e12:.3f}) in {train_step_s * 1e3:.2f} ms: mfu {mfu_train:.4f} (hfu {hfu_train:.4f} "
+              f"counting remat's second forward, 4 x the forward); {smi}", flush=True)
+
+    # 10g. the native packer against the numpy path on phase 6's synthetic latents
+    lat_dir = EVAL_DIR / "latents"
+    write_train_latents(lat_dir)
+    t0 = time.perf_counter()
+    lib = get_lib()
+    build_s = time.perf_counter() - t0
+    ds = LatentFolderDataset(str(lat_dir), head_dim=64)
+    line = []
+    for mode in ("pad", "bucket"):
+        loaders = {native: LatentLoader(ds, TRAIN_BATCH, mode=mode, seed=3, native=native) for native in (True, False)}
+        for a, b in zip(*(loaders[n].epoch_batches(0) for n in (True, False)), strict=True):
+            if a.keys() != b.keys() or not all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"the native packer's {mode} batches differ from the numpy path's")
+        runs = {True: [], False: []}
+        for _ in range(LOADER_REPEATS):
+            for n in (True, False):
+                runs[n].append(profile_loader(loaders[n], LOADER_BATCHES)["ms_per_batch"])
+        ms = {n: float(np.median(v)) for n, v in runs.items()}
+        ratios = [b / a for a, b in zip(runs[True], runs[False])]
+        line.append(
+            f"{mode} native {1e3 / ms[True]:.1f} batches/s ({ms[True]:.2f} ms, runs {min(runs[True]):.2f}-"
+            f"{max(runs[True]):.2f}), numpy {1e3 / ms[False]:.1f} batches/s ({ms[False]:.2f} ms, runs "
+            f"{min(runs[False]):.2f}-{max(runs[False]):.2f}), {ms[False] / ms[True]:.2f}x (runs {min(ratios):.2f}-"
+            f"{max(ratios):.2f}x)")
+    print(f"loader: phase 6's 512 fp16 latents, batch {TRAIN_BATCH}, {LOADER_REPEATS} runs of {LOADER_BATCHES} "
+          f"batches a path through profile_loader, alternating, median ms a batch (the host's {os.cpu_count()} "
+          f"cores, one epoch's bytes identical native vs numpy): "
+          + "; ".join(line) + f"; the packer {Path(lib._name).relative_to(Path(__file__).resolve().parent)} "
+          f"built or loaded in {build_s:.2f} s", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -2155,7 +2413,7 @@ def main() -> None:
         )
     for dtype in (torch.bfloat16, torch.float32):
         train_step_check(ra, rope_freqs_2d, dtype)
-    train_launches, fp32_train_k2 = trainer_phase(kernel_modules, smi)
+    train_launches, fp32_train_k2, train_step_s = trainer_phase(kernel_modules, smi)
     bwd_main, bwd32 = grads[(0, torch.bfloat16)], grads[(0, torch.float32)]
     torch.cuda.empty_cache()
 
@@ -2203,12 +2461,22 @@ def main() -> None:
 
     # 8. the command line: a reference checkpoint sampled, quantized and served
     torch.cuda.empty_cache()
-    cli_totals = cli_phase(kernel_modules, smi, step_ms)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    try:
+        cli_totals = cli_phase(kernel_modules, smi, step_ms)
 
-    # 9. pixels: the SD-VAE decodes phases 4 and 7's latents and encodes
-    # images for the Trainer; the Trainer's ffn="mlp" and learn_sigma loss
-    torch.cuda.empty_cache()
-    pixel_launches = pixels_phase(kernel_modules, smi, latents, mixed, dit_latents)
+        # 9. pixels: the SD-VAE decodes phases 4 and 7's latents and encodes
+        # images for the Trainer; the Trainer's ffn="mlp" and learn_sigma loss
+        torch.cuda.empty_cache()
+        pixel_launches = pixels_phase(kernel_modules, smi, latents, mixed, dit_latents)
+
+        # 10. eval: phase 8's checkpoint sampled to PNGs and scored by cli.fid,
+        # Inception on the card vs the CPU, MFU, the native packer
+        torch.cuda.empty_cache()
+        eval_launches = eval_phase(kernel_modules, smi, step_ms, train_step_s)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
 
     def strided_entry(name, replaces, main_case):
         main = strided[(main_case, torch.bfloat16)]
@@ -2218,7 +2486,8 @@ def main() -> None:
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, bound_by, library_ms=None, sample_count=0):
         by_path = {"sample": sample_count, "serve": serve_launches[name], "train": train_launches[name],
-                   "dit": dit_launches[name], "cli": cli_totals[name], "pixels": pixel_launches[name]}
+                   "dit": dit_launches[name], "cli": cli_totals[name], "pixels": pixel_launches[name],
+                   "eval": eval_launches[name]}
         return {
             "name": name,
             "route": "cuda",

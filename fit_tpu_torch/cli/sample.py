@@ -15,7 +15,9 @@ writes each as ``latent_{idx}_{label}.npy`` (fp16). With
 ``--vae-checkpoint`` (a diffusers sd-vae file, or a directory holding
 ``sd-vae-ft-{vae}.bin``) it decodes them instead, one batched decode per
 batch (one per sample when packed), in ``--dtype``, and writes
-``generated_image_{idx}_{label}.png`` (needs PIL). The ``config.json``
+``generated_image_{idx}_{label}.png`` (needs PIL). Its last line is each
+kernel's launch count since its module's last reset (``[sample] kernel
+launches: {...}``, the run's own in a process of its own). The ``config.json``
 beside the checkpoint supplies the fields not given as flags. Runs on the
 card unless ``--device cpu``.
 """
@@ -23,6 +25,7 @@ card unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 import time
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from fit_tpu_torch.models.fit import FiT, create_fit
+from fit_tpu_torch.ops import launch_counts
 from fit_tpu_torch.utils.config import SampleConfig, add_dataclass_args, from_args
 from fit_tpu_torch.utils.device import resolve_device
 from fit_tpu_torch.vae.model import to_uint8
@@ -224,6 +228,7 @@ def main(argv=None) -> dict:
         print(f"batch {b + 1}/{num_batches}: {n} samples in {seconds:.3f} s "
               f"({seconds / cfg.num_sampling_steps * 1e3:.2f} ms a step)", flush=True)
     print(f"Wrote {cfg.num_samples} {'images' if vae is not None else 'latents'} to {cfg.output_dir}")
+    print(f"[sample] kernel launches: {json.dumps(launch_counts())}", flush=True)
     return result
 
 

@@ -1,4 +1,4 @@
-"""Host-side latent dataset and batch loader (numpy)."""
+"""Host-side latent dataset and batch loader (the native C++ packer, or numpy)."""
 
 from fit_tpu_torch._exports import lazy_exports
 

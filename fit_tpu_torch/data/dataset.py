@@ -1,14 +1,19 @@
 """Host-side latent dataset: variable-aspect VAE latents -> packed token
 sequences with RoPE tables and validity masks.
 
-Counterpart of ``fit_tpu/data/dataset.py`` on its pure-numpy path (the
-native C++ packer is not ported): the same file walk, labels, flips, RoPE
-tables (memoized by grid shape) and both packings, ``pad`` (every sample
-zero-padded to the ``max_length`` budget) and ``bucket`` (one random token
-budget per batch from a fixed set, longer samples subsampled by a random
-permutation). Every batch is drawn from a per-batch seed, so a batch is the
-same numpy arrays as ``fit_tpu``'s loader gives for the same seed, epoch and
-index, whatever the prefetch order, and ``start_batch`` resumes mid-epoch.
+Counterpart of ``fit_tpu/data/dataset.py``: the same file walk, labels,
+flips, RoPE tables (memoized by grid shape) and both packings, ``pad``
+(every sample zero-padded to the ``max_length`` budget) and ``bucket`` (one
+random token budget per batch from a fixed set, longer samples subsampled
+by a random permutation). ``.npy`` datasets are packed by the native C++
+packer (``fit_tpu_torch.data.native``, file reads, fp16 decode, flip and
+patchify in OpenMP threads without the GIL) unless the loader is built
+with ``native=False``; the other datasets, and ``native=False``, take the
+numpy path. Both paths draw every random number in Python from a per-batch
+seed, in the same order, so a batch is the same bytes either way, and the
+same numpy arrays as ``fit_tpu``'s loader gives for the same seed, epoch,
+index and shard, whatever the prefetch order; ``start_batch`` resumes
+mid-epoch.
 """
 
 from __future__ import annotations
@@ -172,9 +177,16 @@ def bucket_batch(
 
 
 class LatentLoader:
-    """Deterministic batch iterator over an epoch permutation drawn from
-    (seed, epoch); the last partial batch is dropped. ``mode`` is "pad" or
-    "bucket"."""
+    """Deterministic, shardable batch iterator.
+
+    Each host (``shard_id`` of ``num_shards``) iterates its shard of an
+    epoch permutation drawn from (seed, epoch): the same seed everywhere
+    gives disjoint shards. With ``drop_last`` (the default) a shard's last
+    partial batch is dropped, else it is the epoch's last batch. ``mode``
+    is "pad" or "bucket"; ``native`` packs ``.npy`` datasets with the C++
+    packer, built at construction if it is not built yet (it raises if it
+    cannot build).
+    """
 
     def __init__(
         self,
@@ -184,20 +196,38 @@ class LatentLoader:
         mode: str = "pad",
         shuffle: bool = True,
         seed: int = 0,
+        drop_last: bool = True,
+        shard_id: int = 0,
+        num_shards: int = 1,
         buckets: Sequence[int] = TOKEN_BUCKETS,
+        native: bool = True,
     ) -> None:
         if mode not in ("pad", "bucket"):
             raise ValueError(f"unknown packing mode {mode!r}: use 'pad' or 'bucket'")
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} is not in [0, num_shards={num_shards})")
         self.ds = dataset
         self.batch_size = batch_size
         self.mode = mode
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.buckets = buckets
         self.epoch = 0
+        self._shape_cache: Dict[str, Tuple[int, int]] = {}  # path -> latent (h, w)
+        self._native = native and all(p.endswith(".npy") for p, _ in dataset.entries)
+        if self._native:
+            from fit_tpu_torch.data.native import get_lib
+
+            get_lib()
 
     def __len__(self) -> int:
-        return len(self.ds) // self.batch_size
+        per_shard = len(self.ds) // self.num_shards
+        if self.drop_last:
+            return per_shard // self.batch_size
+        return -(-per_shard // self.batch_size)
 
     def __iter__(self):
         return self.epoch_batches()
@@ -213,16 +243,87 @@ class LatentLoader:
             self.epoch = epoch + 1
 
     def _batch_plan(self, epoch: int):
-        """The epoch's (index array, batch seed) pairs, from (seed, epoch)."""
+        """The epoch's (index array, batch seed) pairs of this shard, from
+        (seed, epoch)."""
         rng = np.random.default_rng((self.seed, epoch))
         order = rng.permutation(len(self.ds)) if self.shuffle else np.arange(len(self.ds))
+        shard = order[self.shard_id :: self.num_shards]
+        limit = (len(shard) // self.batch_size) * self.batch_size if self.drop_last else len(shard)
         return [
-            (order[start : start + self.batch_size], (self.seed, epoch, bi))
-            for bi, start in enumerate(range(0, len(self) * self.batch_size, self.batch_size))
+            (shard[start : start + self.batch_size], (self.seed, epoch, bi))
+            for bi, start in enumerate(range(0, limit, self.batch_size))
         ]
+
+    def _latent_hw(self, path: str) -> Tuple[int, int]:
+        """A latent's (h, w) from its .npy header alone (a memory map reads
+        no data); cached, since the bucket packer needs token counts before
+        it loads anything."""
+        hw = self._shape_cache.get(path)
+        if hw is None:
+            shape = np.load(path, mmap_mode="r").shape
+            hw = (int(shape[1]), int(shape[2]))
+            self._shape_cache[path] = hw
+        return hw
+
+    def _flips(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        """One flip draw a sample, in the numpy path's order."""
+        if not self.ds.hflip:
+            return np.zeros(n, np.int32)
+        return (rng.random(n) < 0.5).astype(np.int32)
+
+    def _pad_batch_native(self, idxs, rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        """Pad packing through the C++ packer; RoPE tables from the dataset's cache."""
+        from fit_tpu_torch.data.native import pack_batch_native
+
+        ds = self.ds
+        paths = [ds.entries[int(i)][0] for i in idxs]
+        labels = [ds.label_mapping[ds.entries[int(i)][1]] for i in idxs]
+        dtok = ds.patch_size * ds.patch_size * ds.channels
+        tokens, mask, hw, _ = pack_batch_native(paths, self._flips(rng, len(paths)), ds.patch_size, ds.max_length,
+                                                dtok)
+        pos = np.zeros((len(paths), ds.max_length, ds.head_dim), np.float32)
+        for i, (h, w) in enumerate(hw):
+            tab = ds._pos_table(int(h) // ds.patch_size, int(w) // ds.patch_size)
+            t = min(tab.shape[0], ds.max_length)
+            pos[i, :t] = tab[:t]
+        return {"tokens": tokens, "pos": pos, "mask": mask, "label": np.asarray(labels, np.int32),
+                "h": hw[:, 0].copy(), "w": hw[:, 1].copy()}
+
+    def _bucket_batch_native(self, idxs, rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        """Bucket packing through the C++ packer. The draws come in the
+        numpy path's order (each sample's flip, then the budget, then a
+        permutation for each longer sample), so both give the same bytes;
+        C++ reads, decodes, flips, patchifies and gathers."""
+        from fit_tpu_torch.data.native import pack_batch_gather_native
+
+        ds = self.ds
+        b = len(idxs)
+        paths = [ds.entries[int(i)][0] for i in idxs]
+        labels = [ds.label_mapping[ds.entries[int(i)][1]] for i in idxs]
+        grids = [(h // ds.patch_size, w // ds.patch_size) for h, w in map(self._latent_hw, paths)]
+        flips = self._flips(rng, b)
+        n = int(rng.choice(self.buckets))
+        gather = np.full((b, n), -1, np.int32)
+        for i, (nh, nw) in enumerate(grids):
+            t = nh * nw
+            if t > n:
+                gather[i] = rng.permutation(t)[:n]
+            else:
+                gather[i, :t] = np.arange(t, dtype=np.int32)
+        dtok = ds.patch_size * ds.patch_size * ds.channels
+        tokens, mask, _, _ = pack_batch_gather_native(paths, flips, gather, ds.patch_size, dtok)
+        pos = np.zeros((b, n, ds.head_dim), np.float32)
+        for i, (nh, nw) in enumerate(grids):
+            valid = gather[i] >= 0
+            pos[i, valid] = ds._pos_table(nh, nw)[gather[i, valid]]
+        return {"tokens": tokens, "pos": pos, "mask": mask, "label": np.asarray(labels, np.int32)}
 
     def _build_batch(self, idxs, batch_seed) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(batch_seed)
+        if self._native:
+            if self.mode == "pad":
+                return self._pad_batch_native(idxs, rng)
+            return self._bucket_batch_native(idxs, rng)
         items = [self.ds.__getitem__(int(i), rng=rng) for i in idxs]
         if self.mode == "pad":
             return pad_batch(items, self.ds.max_length)

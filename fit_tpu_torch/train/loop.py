@@ -98,7 +98,7 @@ class Trainer:
         )
         self.loader = LatentLoader(
             self.dataset, cfg.global_batch_size, mode=cfg.packing, seed=cfg.global_seed,
-            buckets=cfg.token_buckets,
+            shard_id=0, num_shards=1, buckets=cfg.token_buckets,  # one host until parallel (ROADMAP Queue 1 item 10)
         )
         self.val_loader = None
         if cfg.feature_val_path and os.path.isdir(cfg.feature_val_path):
@@ -106,7 +106,8 @@ class Trainer:
                 cfg.feature_val_path, patch_size=cfg.patch_size, sample_size=cfg.image_size,
                 vae_scale=cfg.vae_scale, channels=cfg.channels, head_dim=self.head_dim, hflip=False,
             )
-            self.val_loader = LatentLoader(val_ds, cfg.global_batch_size, mode="pad", shuffle=False, seed=cfg.global_seed)
+            self.val_loader = LatentLoader(val_ds, cfg.global_batch_size, mode="pad", shuffle=False, seed=cfg.global_seed,
+                                           shard_id=0, num_shards=1)
 
         self.t_sampler = create_named_schedule_sampler(cfg.timestep_sampler, self.diffusion.original_num_steps)
         self._use_t_sampler = cfg.timestep_sampler != "uniform"

@@ -102,3 +102,40 @@ def test_profile_train_rejects_an_unknown_dtype():
     with pytest.raises(SystemExit) as exc:
         profile_train.main(["--dtype", "float16"])
     assert exc.value.code == 2
+
+
+def test_phase10_inception_state_loads_in_both_packages():
+    """Phase 10's seeded InceptionV3 has pytorch-fid's module names: both
+    packages' converters take every key it has, and the port's keeps the
+    1008-way fc."""
+    from fit_tpu.eval import inception as ref_inc
+    from fit_tpu_torch.eval import inception
+
+    sd = chip_smoke.seeded_inception_state()
+    model = inception.convert_torch_inception(sd)
+    params = ref_inc.convert_torch_inception({k: v.numpy() for k, v in sd.items()})
+    assert model.fc.out_features == 1008 and params["fc"]["kernel"].shape == (2048, 1008)
+    convs = [n for n, m in model.named_modules() if isinstance(m, torch.nn.Conv2d)]
+    assert len(sd) == 5 * len(convs) + 2 and all(f"{n}.bn.running_var" in sd for n in convs)
+
+
+def test_phase10_inception_flops_match_torchs_flop_counter():
+    """The hooks' count of one image's convolutions and fc head equals
+    ``torch.utils.flop_counter`` on the same pass (2 per multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from fit_tpu_torch.eval import inception
+
+    model = inception.convert_torch_inception(chip_smoke.seeded_inception_state())
+    with FlopCounterMode(display=False) as counter, torch.inference_mode():
+        model.logits(model(torch.zeros((1, 3, 299, 299)))[0])
+    assert chip_smoke.inception_flops(model) == counter.get_total_flops()
+    assert 11.0e9 < counter.get_total_flops() < 12.0e9  # InceptionV3's ~5.7 G multiply-adds
+
+
+def test_phase10_parses_cli_fid_lines():
+    out = ("extracted features for 64 images from x\nFID: 12.3456\nsFID: 7.5000\n"
+           "Inception Score: 1.0100 +/- 0.0020\nPrecision: 0.2500  Recall: 0.7500\n")
+    assert chip_smoke.parse_metric_lines(out) == {
+        "FID": [12.3456], "sFID": [7.5], "IS": [1.01, 0.002], "PR": [0.25, 0.75]}
+    assert chip_smoke.parse_metric_lines("FID: 1.0\n") == {"FID": [1.0]}

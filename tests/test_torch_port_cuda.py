@@ -728,3 +728,52 @@ def test_vae_on_the_card(cuda_device, blocks):
     assert _rel_rms(dec[torch.float32], want_dec) <= 1e-5 and _rel_rms(enc[torch.float32], want_enc) <= 1e-5
     assert _rel_rms(dec[torch.bfloat16], dec[torch.float32]) <= 5e-2
     assert _rel_rms(enc[torch.bfloat16], enc[torch.float32]) <= 5e-2
+
+
+@pytest.fixture(scope="module")
+def seeded_inception():
+    """chip_smoke.py phase 10's seeded full-width InceptionV3, on the CPU."""
+    import chip_smoke
+    from fit_tpu_torch.eval.inception import convert_torch_inception
+
+    return convert_torch_inception(chip_smoke.seeded_inception_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [256, 512])
+@pytest.mark.parametrize("variant", ["fid", "torchvision"])
+def test_inception_on_the_card_matches_cpu(cuda_device, seeded_inception, variant, side):
+    """InceptionV3 on the card (cuDNN, fp32 with TF32 off) against the same
+    module on the CPU: pool3, spatial and probs within 1e-4 of max |CPU|,
+    from an upscaled (256^2) and a downscaled, antialiased (512^2) input."""
+    from fit_tpu_torch.eval.inception import make_suite_extractor
+
+    x = np.random.default_rng(side).uniform(size=(4, 3, side, side)).astype(np.float32)
+    want = make_suite_extractor(seeded_inception, variant, spatial=True, probs=True, device="cpu")(x)
+    got = make_suite_extractor(seeded_inception, variant, spatial=True, probs=True, device=cuda_device)(x)
+    assert set(got) == {"pool3", "spatial", "probs"}
+    for k in want:
+        assert got[k].shape == want[k].shape
+        assert np.abs(got[k] - want[k]).max() <= 1e-4 * np.abs(want[k]).max(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pad", "bucket"])
+def test_native_loader_bytes_on_the_card_host(cuda_device, tmp_path, mode):
+    """The native packer built on the card's host (its own CPU flags) gives
+    the numpy path's bytes, and a batch moves to the card whole."""
+    from fit_tpu_torch.data import native
+    from fit_tpu_torch.data.dataset import LatentFolderDataset, LatentLoader
+
+    rng = np.random.default_rng(0)
+    for i in range(24):
+        (tmp_path / f"c{i % 2}").mkdir(exist_ok=True)
+        lat = rng.normal(size=[(4, 32, 32), (4, 28, 36)][i % 2]).astype(np.float16)
+        np.save(tmp_path / f"c{i % 2}" / f"{i}.npy", lat)
+    ds = LatentFolderDataset(str(tmp_path))
+    assert native.get_lib()._name == str(native.library_path())
+    fast, slow = (LatentLoader(ds, 8, mode=mode, seed=1, native=n) for n in (True, False))
+    for a, b in zip(fast.epoch_batches(0), slow.epoch_batches(0), strict=True):
+        for k in b:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+        assert torch.equal(torch.from_numpy(a["tokens"]).to(cuda_device).cpu(), torch.from_numpy(b["tokens"]))

@@ -16,10 +16,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-PORTED = ("core", "data", "diffusion", "models", "ops", "train", "utils", "vae")
+PORTED = ("core", "data", "diffusion", "eval", "models", "ops", "train", "utils", "vae")
 NOT_PORTED = {
     "models.MoeSwiGLU": "ROADMAP Queue 1 item 9 (MoE)",
-    "eval": "ROADMAP Queue 1 item 6 (eval)",
     "parallel": "ROADMAP Queue 1 item 10 (parallel)",
 }
 REPO = Path(__file__).resolve().parents[1]
