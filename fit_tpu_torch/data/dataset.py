@@ -29,6 +29,7 @@ import torch
 
 from fit_tpu_torch.core.geometry import patchify_np
 from fit_tpu_torch.core.pos_embed import rope_freqs_2d
+from fit_tpu_torch.utils import profiling
 
 __all__ = [
     "LatentExample",
@@ -338,7 +339,8 @@ class LatentLoader:
     ):
         """The batches of :meth:`epoch_batches`, built ``depth`` ahead by
         ``num_threads`` worker threads (file reads, fp16 decode and patchify
-        overlap the card's step), in plan order."""
+        overlap the card's step), in plan order. The time the caller waits
+        for each is the recorder's ``train.loader_wait`` span."""
         advance = epoch is None
         epoch = self.epoch if epoch is None else epoch
         plan = self._batch_plan(epoch)[start_batch:]
@@ -348,7 +350,8 @@ class LatentLoader:
             for _ in range(min(depth, len(plan))):
                 pending.append(pool.submit(self._build_batch, *next(it)))
             while pending:
-                batch = pending.popleft().result()
+                with profiling.span("train.loader_wait"):
+                    batch = pending.popleft().result()
                 nxt = next(it, None)
                 if nxt is not None:
                     pending.append(pool.submit(self._build_batch, *nxt))

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from fit_tpu_torch.ops import LAUNCHES
 from fit_tpu_torch.ops import rope_attention as ra
 
 __all__ = [
@@ -38,13 +39,18 @@ __all__ = [
     "reset_launches",
 ]
 
-# Launches of K1 through masked_attention_fwd since the last reset_launches().
-launches = 0
+# Launches of K1 through masked_attention_fwd since the last reset_launches(),
+# read as ``launches``: the ops package's LAUNCHES["masked_attention"].
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    LAUNCHES["masked_attention"] = 0
+
+
+def __getattr__(name):
+    if name == "launches":
+        return LAUNCHES["masked_attention"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def mask_to_lengths(mask: torch.Tensor) -> torch.Tensor:
@@ -91,7 +97,6 @@ def masked_attention_fwd(q, k, v, lengths, scale: float, *, plain: bool = False)
     caller's ``transpose(1, 2).reshape(B, T, H * d)`` costs no copy. On a
     CPU tensor, or with ``plain``, the plain version; on a CUDA tensor the
     kernel."""
-    global launches
     if plain or q.device.type == "cpu":
         return masked_attention_reference(q, k, v, lengths, scale)
     if q.device.type != "cuda":
@@ -102,7 +107,7 @@ def masked_attention_fwd(q, k, v, lengths, scale: float, *, plain: bool = False)
     ra._check_tables(None, None, lengths, b, t, d, q.device)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     ra._k1_launch(qt, kt, vt, out, None, None, lengths, scale * ra.LOG2_E)
-    launches += 1
+    LAUNCHES["masked_attention"] += 1
     return out.transpose(1, 2)
 
 

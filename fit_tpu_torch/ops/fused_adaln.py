@@ -18,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from fit_tpu_torch.ops import _build
+from fit_tpu_torch.ops import LAUNCHES, _build
 
 __all__ = [
     "adaln_modulate",
@@ -29,13 +29,20 @@ __all__ = [
     "reset_launches",
 ]
 
-# Kernel launches of each wrapper since the last reset_launches().
-launches = {"adaln_modulate": 0, "swiglu_glue": 0}
+# Kernel launches of each wrapper since the last reset_launches(), read as
+# the dict ``launches``: the ops package's LAUNCHES of these names.
+_KERNELS = ("adaln_modulate", "swiglu_glue")
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for k in _KERNELS:
+        LAUNCHES[k] = 0
+
+
+def __getattr__(name):
+    if name == "launches":
+        return {k: LAUNCHES[k] for k in _KERNELS}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def adaln_reference(x, shift, scale, eps: float = 1e-6) -> torch.Tensor:
@@ -73,7 +80,7 @@ def adaln_modulate(
     if plain or x.device.type == "cpu":
         return adaln_reference(x, shift, scale, eps)
     out, _ = launch_adaln(x, shift, scale, eps, quant=False)
-    launches["adaln_modulate"] += 1
+    LAUNCHES["adaln_modulate"] += 1
     return out
 
 
@@ -87,7 +94,7 @@ def swiglu_glue(
     if plain or gate.device.type == "cpu":
         return swiglu_reference(gate, value)
     out, _ = launch_silu_mul(gate, value, quant=False)
-    launches["swiglu_glue"] += 1
+    LAUNCHES["swiglu_glue"] += 1
     return out
 
 

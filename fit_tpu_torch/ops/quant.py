@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fit_tpu_torch.ops import LAUNCHES
 from fit_tpu_torch.ops.fused_adaln import launch_adaln, launch_silu_mul
 
 __all__ = [
@@ -62,15 +63,22 @@ QUANT_KERNEL_PATHS = (
     ("ffn", "fc2"),
 )
 
-# Kernel launches of each wrapper since the last reset_launches().
-launches = {"adaln_quant": 0, "silu_mul_quant": 0}
+# Kernel launches of each wrapper since the last reset_launches(), read as
+# the dict ``launches``: the ops package's LAUNCHES of these names.
+_KERNELS = ("adaln_quant", "silu_mul_quant")
 
 Quantized = Tuple[torch.Tensor, torch.Tensor]  # (int8 codes (..., K), fp32 scales (..., 1))
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for k in _KERNELS:
+        LAUNCHES[k] = 0
+
+
+def __getattr__(name):
+    if name == "launches":
+        return {k: LAUNCHES[k] for k in _KERNELS}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _rowwise_quant(h: torch.Tensor) -> Quantized:
@@ -167,7 +175,7 @@ def adaln_quant(
     if plain or x.device.type == "cpu":
         return adaln_quant_reference(x, shift, scale, eps)
     out = launch_adaln(x, shift, scale, eps, quant=True)
-    launches["adaln_quant"] += 1
+    LAUNCHES["adaln_quant"] += 1
     return out
 
 
@@ -177,7 +185,7 @@ def silu_mul_quant(gate: torch.Tensor, val: torch.Tensor, *, plain: bool = False
     if plain or gate.device.type == "cpu":
         return silu_mul_quant_reference(gate, val)
     out = launch_silu_mul(gate, val, quant=True)
-    launches["silu_mul_quant"] += 1
+    LAUNCHES["silu_mul_quant"] += 1
     return out
 
 

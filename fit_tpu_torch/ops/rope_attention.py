@@ -45,7 +45,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from fit_tpu_torch.ops import _build
+from fit_tpu_torch.ops import LAUNCHES, _build
 
 __all__ = [
     "split_rope_tables",
@@ -66,17 +66,21 @@ __all__ = [
 LOG2_E = 1.4426950408889634  # softmax as exp2 with log2(e) folded into q
 
 # Launches of K1 through rope_attention_fwd, of K2 (rope_attention_bwd) and
-# of K1 through rope_flash_attention since the last reset_launches().
-launches = 0
-bwd_launches = 0
-flash_launches = 0
+# of K1 through rope_flash_attention since the last reset_launches(), read as
+# these attributes: the ops package's LAUNCHES of these kernel names.
+_COUNTERS = {"launches": "rope_attention_fwd", "bwd_launches": "rope_attention_bwd",
+             "flash_launches": "rope_flash_attention"}
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches, flash_launches
-    launches = 0
-    bwd_launches = 0
-    flash_launches = 0
+    for k in _COUNTERS.values():
+        LAUNCHES[k] = 0
+
+
+def __getattr__(name):
+    if name in _COUNTERS:
+        return LAUNCHES[_COUNTERS[name]]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def split_rope_tables(freqs_cis: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
@@ -332,7 +336,6 @@ def rope_attention_fwd(
     """K1's wrapper: the forward, no autograd. Returns ``out`` (B, T, C), or
     ``(out, lse2)`` with ``with_lse``. On a CPU tensor, or with ``plain``,
     the plain version; on a CUDA tensor the kernel."""
-    global launches
     if plain or qkv.device.type == "cpu":
         return rope_attention_reference(qkv, cos, sin, lengths, scale, num_heads, with_lse=with_lse)
     if qkv.device.type != "cuda":
@@ -344,7 +347,7 @@ def rope_attention_fwd(
     lse = torch.empty((b, t, num_heads), dtype=torch.float32, device=qkv.device) if with_lse else None
     q, k, v = qkv.view(b, t, 3, num_heads, d).unbind(2)  # views: K1 reads them by stride
     _k1_launch(q, k, v, out.view(b, t, num_heads, d), cos, sin, lengths, scale * LOG2_E, lse)
-    launches += 1
+    LAUNCHES["rope_attention_fwd"] += 1
     return (out, lse) if with_lse else out
 
 
@@ -365,7 +368,6 @@ def rope_attention_bwd(
     contiguous and cast to qkv's dtype first. On a CPU tensor, or with
     ``plain``, the plain version; on a CUDA tensor the kernel (three
     launches: a prologue, then dk/dv, then dq; counted as one call)."""
-    global bwd_launches
     if plain or qkv.device.type == "cpu":
         return rope_attention_backward_reference(qkv, g, out, lse, cos, sin, lengths, scale, num_heads)
     if qkv.device.type != "cuda":
@@ -376,7 +378,7 @@ def rope_attention_bwd(
     _check_bwd_args(qkv, g, out, lse, num_heads)
     dqkv = torch.empty_like(qkv)
     _k2_launch(qkv, g, out, lse, cos, sin, lengths, scale, num_heads, dqkv, *_k2_scratch(qkv, num_heads))
-    bwd_launches += 1
+    LAUNCHES["rope_attention_bwd"] += 1
     return dqkv
 
 
@@ -493,7 +495,6 @@ def rope_flash_attention(
     :func:`qkv_rope_attention`'s autograd Function, K1 with lse then K2,
     counted as that entry's launches. A K2 on strided operands is later work.
     """
-    global flash_launches
     b, t, h, d = q.shape
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         qkv = torch.stack([q, k, v], dim=2).reshape(b, t, 3 * h * d)
@@ -507,7 +508,7 @@ def rope_flash_attention(
     _check_tables(cos, sin, lengths, b, t, d, q.device)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     _k1_launch(q, k, v, out, cos, sin, lengths, scale * LOG2_E)
-    flash_launches += 1
+    LAUNCHES["rope_flash_attention"] += 1
     return out
 
 

@@ -27,6 +27,12 @@ Counterpart of ``fit_tpu/serve.py``:
   (:class:`ServerOverloaded`, HTTP 429); a request whose deadline passes
   while queued fails with :class:`DeadlineExceeded` (HTTP 504) and never
   takes a slot; one that expires after dispatch completes and is counted.
+* **Spans.** The worker's time is covered, one span at a time, by the
+  recorder's ``serve.collect`` (waiting for and gathering a batch),
+  ``serve.noise``, ``serve.enqueue``, ``serve.decode`` (one a decode),
+  ``serve.readback`` and ``serve.resolve``, each with the batch's id;
+  ``warmup`` leaves a ``serve.warmup`` span
+  (``fit_tpu_torch.utils.profiling``).
 * **Pixels.** With a ``vae`` (``fit_tpu_torch.vae.AutoencoderKL``) the
   worker decodes each batch on the card right after enqueueing its
   sampling, one batched decode per distinct latent shape, and futures
@@ -42,6 +48,7 @@ A worker thread and a queue here, and a stdlib HTTP front end in
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
@@ -55,6 +62,7 @@ import torch
 from fit_tpu_torch.core.geometry import token_count
 from fit_tpu_torch.models.fit import FiT
 from fit_tpu_torch.sampling import FiTSampler
+from fit_tpu_torch.utils import profiling
 from fit_tpu_torch.vae.model import to_uint8
 
 __all__ = ["SamplingServer", "ServerOverloaded", "DeadlineExceeded"]
@@ -79,6 +87,7 @@ class _Request:
     future: Future
     t_submit: float
     deadline: Optional[float] = None  # absolute time.monotonic() cutoff
+    batch: int = 0  # the id of the batch that took it
 
 
 _SENTINEL = object()  # close(drain=True) marker: serve everything before it
@@ -139,8 +148,8 @@ class SamplingServer:
         self._expired_after_dispatch = 0
         self._batches = 0
         self._slots = 0
-        self._latencies: List[float] = []
-        self._batch_counter = 0
+        self._latencies: "collections.deque[float]" = collections.deque(maxlen=10_000)  # the stats window
+        self._batch_counter = 0  # the worker's alone
         self._nprng = np.random.default_rng(0)
         self.vae = vae
         self._thread = threading.Thread(target=self._worker, name="fit-serve-worker", daemon=True)
@@ -201,16 +210,20 @@ class SamplingServer:
 
     def _serve_loop(self) -> None:
         # one-deep pipeline: while batch N computes on the card, the worker
-        # collects and enqueues batch N+1, then reads N back
+        # collects and enqueues batch N+1, then reads N back. serve.collect
+        # covers the loop's time outside _launch's and _complete's spans.
         pending = None  # (requests, device latents) enqueued but not read back
         draining = False  # close(drain=True) sentinel seen: exit when caught up
+        t_collect = time.perf_counter()  # start of the open serve.collect span
         while not self._stop.is_set() and not draining:
             try:
                 first = self._q.get(timeout=0.05)
             except queue.Empty:
                 if pending is not None:
+                    profiling.record("serve.collect", t_collect, time.perf_counter(), id=self._batch_counter + 1)
                     self._complete(*pending)
                     pending = None
+                    t_collect = time.perf_counter()
                 continue
             if first is _SENTINEL:
                 break
@@ -238,10 +251,17 @@ class SamplingServer:
                     break
                 if not self._expire(nxt):
                     batch.append(nxt)
+            self._batch_counter += 1
+            bid = self._batch_counter
+            for r in batch:
+                r.batch = bid
+            profiling.record("serve.collect", t_collect, time.perf_counter(), id=bid)
             launched = self._launch(batch)
             if pending is not None:
                 self._complete(*pending)
             pending = (batch, launched) if launched is not None else None
+            t_collect = time.perf_counter()
+        profiling.record("serve.collect", t_collect, time.perf_counter(), id=self._batch_counter + 1)
         if pending is not None:
             self._complete(*pending)
         # a close without drain fails every request still queued
@@ -275,15 +295,15 @@ class SamplingServer:
         Returns the device latents, or None after failing the futures."""
         # pad to the static batch size with copies of the last request
         padded = batch + [batch[-1]] * (self.batch_size - len(batch))
+        bid = batch[0].batch
         try:
-            labels = [r.label for r in padded]
-            sizes = [(r.height, r.width) for r in padded]
-            z = torch.from_numpy(np.stack([self._canvas_noise(r) for r in padded]))
-            with self._lock:
-                self._batch_counter += 1
-                counter = self._batch_counter
-            generator = torch.Generator(self.device).manual_seed(counter)
-            latents = self.sampler.sample_mixed(labels, sizes, generator=generator, z=z)
+            with profiling.span("serve.noise", id=bid):
+                labels = [r.label for r in padded]
+                sizes = [(r.height, r.width) for r in padded]
+                z = torch.from_numpy(np.stack([self._canvas_noise(r) for r in padded]))
+                generator = torch.Generator(self.device).manual_seed(bid)
+            with profiling.span("serve.enqueue", id=bid):
+                latents = self.sampler.sample_mixed(labels, sizes, generator=generator, z=z)
             if self.vae is None:
                 return latents
             # one batched decode per latent shape, padded to the static batch
@@ -293,8 +313,10 @@ class SamplingServer:
                 groups.setdefault(tuple(latents[i].shape), []).append(i)
             out = list(latents)
             for idxs in groups.values():
-                padded_idxs = idxs + [idxs[-1]] * (self.batch_size - len(idxs))
-                images = self.vae.decode(torch.stack([latents[i] for i in padded_idxs]))
+                with profiling.span("serve.decode", id=bid, rows=self.batch_size, images=len(idxs)):
+                    padded_idxs = idxs + [idxs[-1]] * (self.batch_size - len(idxs))
+                    images = self.vae.decode(torch.stack([latents[i] for i in padded_idxs]))
+                profiling.count("vae.decoded_rows", self.batch_size, id=bid)
                 for j, i in enumerate(idxs):
                     out[i] = images[j]
             return out
@@ -307,25 +329,27 @@ class SamplingServer:
     def _complete(self, batch: List[_Request], latents) -> None:
         """Read a launched batch back to the host and resolve its futures."""
         n = len(batch)
+        bid = batch[0].batch
         try:
-            if self.vae is None:
-                host = [np.array(lat.cpu(), dtype=np.float32) for lat in latents[:n]]
-            else:  # (3, H, W) in [-1, 1] -> (H, W, 3) uint8
-                host = [to_uint8(img) for img in latents[:n]]
-            now = time.monotonic()
-            # a dispatched request always completes (its slot cannot be taken
-            # back mid-denoise); count those that resolve past their deadline
-            late = sum(1 for r in batch if r.deadline is not None and now > r.deadline)
-            for req, lat in zip(batch, host):
-                req.future.set_result(lat)
-            with self._lock:
-                self._served += n
-                self._batches += 1
-                self._slots += self.batch_size
-                self._expired_after_dispatch += late
-                self._latencies.extend(now - r.t_submit for r in batch)
-                if len(self._latencies) > 10_000:  # bound the stats window
-                    self._latencies = self._latencies[-10_000:]
+            with profiling.span("serve.readback", id=bid):
+                if self.vae is None:
+                    host = [np.array(lat.cpu(), dtype=np.float32) for lat in latents[:n]]
+                else:  # (3, H, W) in [-1, 1] -> (H, W, 3) uint8
+                    host = [to_uint8(img) for img in latents[:n]]
+            with profiling.span("serve.resolve", id=bid):
+                now = time.monotonic()
+                # a dispatched request always completes (its slot cannot be taken
+                # back mid-denoise); count those that resolve past their deadline
+                late = sum(1 for r in batch if r.deadline is not None and now > r.deadline)
+                for req, lat in zip(batch, host):
+                    req.future.set_result(lat)
+                profiling.count("serve.images", n, id=bid)
+                with self._lock:
+                    self._served += n
+                    self._batches += 1
+                    self._slots += self.batch_size
+                    self._expired_after_dispatch += late
+                    self._latencies.extend(now - r.t_submit for r in batch)
         except Exception as exc:  # noqa: BLE001 — the batch's futures carry it
             for req in batch:
                 if not req.future.done():
@@ -337,16 +361,18 @@ class SamplingServer:
         """Run one throwaway full batch (the first launches build the CUDA
         kernels), then reset the serving stats so its latency stays out of
         them. Returns the wall seconds spent."""
-        t0 = time.monotonic()
-        futs = [self.submit(0, *sizes[i % len(sizes)], seed=0) for i in range(self.batch_size)]
-        for f in futs:
-            f.result(timeout=timeout)
-        with self._lock:
-            self._served = self._batches = self._slots = 0
-            self._latencies.clear()
-        return time.monotonic() - t0
+        with profiling.span("serve.warmup") as s:
+            futs = [self.submit(0, *sizes[i % len(sizes)], seed=0) for i in range(self.batch_size)]
+            for f in futs:
+                f.result(timeout=timeout)
+            with self._lock:
+                self._served = self._batches = self._slots = 0
+                self._latencies.clear()
+        return time.perf_counter() - s.t0
 
     def stats(self) -> dict:
+        """Counts since the start (or the warm-up's reset), and the latency
+        percentiles, submit to answer, of the last 10,000 requests answered."""
         with self._lock:
             lat = sorted(self._latencies)
             out = {

@@ -14,6 +14,11 @@ parallelism (tp, sp, pp, ep > 1), fsdp, and the MoE FFN. The blocks' FFN
 is SwiGLU or (``ffn="mlp"``) the tanh-GELU MLP. ``scan_blocks`` only
 changes a ``fit_tpu`` checkpoint's layout and is accepted. On the card ``attn_backend`` must be "auto" or "fused"
 (the CUDA kernels); nothing routes to the plain attention there.
+
+Each step leaves the recorder's ``train.loader_wait`` span on the loop's
+thread (``fit_tpu_torch.utils.profiling``): blocked on the loader's next
+host batch. Every ``log_every`` line carries ``loader_wait_share``, the
+share of the time since the last line spent in it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import threading
 import time
 from typing import Dict, Optional
 
@@ -36,6 +42,7 @@ from fit_tpu_torch.models.fit import create_fit
 from fit_tpu_torch.sampling import mask_lengths
 from fit_tpu_torch.train.state import create_train_state, make_optimizer
 from fit_tpu_torch.train.step import make_eval_step, make_train_step, split_for_accumulation
+from fit_tpu_torch.utils import profiling
 from fit_tpu_torch.utils.checkpoint import CheckpointManager
 from fit_tpu_torch.utils.config import TrainConfig
 from fit_tpu_torch.utils.device import resolve_device
@@ -65,6 +72,15 @@ def _check_supported(cfg: TrainConfig, device: torch.device) -> None:
         raise ValueError(
             f"attn_backend {cfg.attn_backend!r}: on the card attention runs through the CUDA kernels ('auto' or 'fused')"
         )
+
+
+def loader_wait_s(t0: float, t1: float) -> float:
+    """Seconds of ``[t0, t1]`` (``time.perf_counter()``) in which this
+    thread waited for the loader's next host batch: its ``train.loader_wait``
+    spans, clipped."""
+    tid = threading.get_native_id()
+    return sum(min(e.t1, t1) - max(e.t0, t0) for e in profiling.recorded(t0, t1)
+               if e.name == "train.loader_wait" and e.tid == tid)
 
 
 class Trainer:
@@ -200,7 +216,7 @@ class Trainer:
         self.state = self._init_state() if self.state is None else self.state
         state = self.state
         log_every = max(1, cfg.log_every)
-        t_last = time.time()
+        t_last = time.perf_counter()
         imgs_since = 0
         done = False
         profiler = None
@@ -229,12 +245,16 @@ class Trainer:
                     imgs_since += batch["tokens"].shape[0]
                     if state.step % log_every == 0:
                         loss = float(metrics["loss"])
-                        dt = time.time() - t_last
+                        now = time.perf_counter()
+                        dt = now - t_last
+                        extra = {}
+                        if profiling.enabled():
+                            extra["loader_wait_share"] = loader_wait_s(t_last, now) / max(dt, 1e-9)
                         self.logger.log(
                             state.step, train_loss=loss, grad_norm=float(metrics["grad_norm"]),
-                            images_per_sec=imgs_since / max(dt, 1e-9), epoch=epoch,
+                            images_per_sec=imgs_since / max(dt, 1e-9), epoch=epoch, **extra,
                         )
-                        t_last, imgs_since = time.time(), 0
+                        t_last, imgs_since = time.perf_counter(), 0
                     if max_steps is not None and state.step >= max_steps:
                         done = True
                         break
