@@ -575,6 +575,15 @@ def train_step_check(ra, rope_freqs_2d, dtype=torch.bfloat16) -> None:
         raise AssertionError(f"the {dtype} training step through the kernels disagrees with the plain one")
 
 
+def float_glue(forwards: int, depth: int = DEPTH, swiglu: bool = True) -> dict:
+    """The row-glue launches of ``forwards`` float forwards on the card that
+    need no backward: K5 for each block's attention LayerNorm and for the
+    final layer's, K5R for each block's attention residual + FFN LayerNorm,
+    K6 for each SwiGLU product (none in a GELU MLP block)."""
+    return {"adaln_modulate": (depth + 1) * forwards, "adaln_residual": depth * forwards,
+            "swiglu_glue": depth * forwards if swiglu else 0}
+
+
 def kernel_launches(ra, quant, fused_adaln, attn) -> dict:
     """Every kernel's launch count since its module's last reset."""
     return {"rope_attention_fwd": ra.launches, "rope_attention_bwd": ra.bwd_launches,
@@ -778,14 +787,14 @@ def device_ms(fn, iters: int = 20) -> float:
 
 def row_kernel_cases():
     """Phase 3b: each row kernel against its plain version, bf16, at the
-    XL serving shapes, with its device time, its share of its bound and, for
-    K3, its predecessor's time. Returns {name: (max_abs_err, kernel
+    XL serving and sampling shapes, with its device time, its share of its
+    bound and, for K3, its predecessor's time. Returns {name: (max_abs_err, kernel
     ms, plain ms, bound ms, bound by)} with the device times and the bound
     at batch 8 + CFG (4,096 rows)."""
     from fit_tpu_torch.cli.row_kernels_ab import ROW_SHAPES, VARIANTS, check, row_bytes, row_inputs
 
     results = {}
-    for name, (width, _, fn) in VARIANTS.items():
+    for name, (width, _, fn, _) in VARIANTS.items():
         errs = []
         for b, t in ROW_SHAPES:
             args = row_inputs(name, b, t)
@@ -795,7 +804,7 @@ def row_kernel_cases():
             ms, plain_ms = device_ms(lambda: fn(*args)), device_ms(lambda: fn(*args, plain=True))
             wall_ms, plain_wall_ms = time_ms(lambda: fn(*args)), time_ms(lambda: fn(*args, plain=True))
             bound, bound_by = bound_ms(row_bytes(name, b, t), 0, torch.bfloat16)
-            earlier = K3_EARLIER_US[(b, t)] if name == "adaln_quant" else None
+            earlier = K3_EARLIER_US.get((b, t)) if name == "adaln_quant" else None
             print(
                 f"row kernel vs plain: {name} rows={b * t} width={width} bf16 {detail} "
                 f"max_abs_err={err:.3e} kernel_us={ms * 1e3:.1f} plain_us={plain_ms * 1e3:.1f} (device); "
@@ -1137,6 +1146,7 @@ def dit_phase(kernel_modules):
     launches = kernel_launches(*kernel_modules)
     want = {k: 0 for k in launches}
     want["masked_attention"] = DIT_DEPTH * DIT_STEPS
+    want.update(float_glue(DIT_STEPS, DIT_DEPTH, swiglu=False))  # one guided forward a step
     if launches != want:
         raise AssertionError(f"DiT sampling launches {launches}, expected {want}")
     if tuple(latents.shape) != (BATCH, 4, DIT_SIDE, DIT_SIDE) or not torch.isfinite(latents).all():
@@ -1359,8 +1369,9 @@ def cli_phase(kernel_modules, smi, ddim_step_ms):
         return out
 
     k1_run = DEPTH * STEPS  # one guided forward a step, one K1 launch a block
+    glue = float_glue(STEPS)
     dpm = run_cli("cli.sample dpm", cli_sample.main, common + ["--sampler", "dpm", "--output-dir", str(CLI_DIR / "dpm")],
-                  rope_attention_fwd=k1_run)
+                  rope_attention_fwd=k1_run, **glue)
     files = sorted((CLI_DIR / "dpm").glob("latent_*.npy"))
     saved = [np.load(f) for f in files]
     if len(files) != BATCH or any(a.shape != (4, 32, 32) or not np.isfinite(a).all() for a in saved):
@@ -1388,19 +1399,20 @@ def cli_phase(kernel_modules, smi, ddim_step_ms):
     del ref_sampler, want
 
     ddim = run_cli("cli.sample ddim", cli_sample.main,
-                   common + ["--sampler", "ddim", "--output-dir", str(CLI_DIR / "ddim")], rope_attention_fwd=k1_run)
+                   common + ["--sampler", "ddim", "--output-dir", str(CLI_DIR / "ddim")], rope_attention_fwd=k1_run,
+                   **glue)
     if not all(np.isfinite(x).all() for x in ddim["latents"]):
         raise AssertionError("cli.sample ddim: non-finite latents")
     sizes = ",".join(f"{h}x{w}" for h, w in MIXED_SIZES)
     mixed = run_cli("cli.sample ddim mixed", cli_sample.main,
                     common + ["--sampler", "ddim", "--image-sizes", sizes, "--output-dir", str(CLI_DIR / "mixed")],
-                    rope_attention_fwd=k1_run)
+                    rope_attention_fwd=k1_run, **glue)
     want_shapes = [(4, MIXED_SIZES[i % 4][0] // 8, MIXED_SIZES[i % 4][1] // 8) for i in range(BATCH)]
     if [lat.shape for lat in mixed["latents"]] != want_shapes or not all(np.isfinite(x).all() for x in mixed["latents"]):
         raise AssertionError(f"cli.sample mixed: {[lat.shape for lat in mixed['latents']]}")
     fp32 = run_cli("cli.sample fp32", cli_sample.main,
                    common + ["--sampler", "ddim", "--dtype", "float32", "--output-dir", str(CLI_DIR / "fp32")],
-                   rope_attention_fwd=k1_run)
+                   rope_attention_fwd=k1_run, **glue)
     if not all(np.isfinite(x).all() for x in fp32["latents"]):
         raise AssertionError("cli.sample --dtype float32: non-finite latents")
     print(f"cli.sample ddim batch {BATCH}: {ddim['seconds'][0] / STEPS * 1e3:.2f} ms/step; ddim packed over {sizes} "
@@ -1426,7 +1438,7 @@ def cli_phase(kernel_modules, smi, ddim_step_ms):
     quant_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_cli("cli.quantize --equalize 2", cli_quantize.main, common + ["--output", str(art_eq), "--equalize", "2"],
-            rope_attention_fwd=2 * DEPTH)  # one calibration forward a batch
+            rope_attention_fwd=2 * DEPTH, **float_glue(2))  # one calibration forward a batch
     quant_eq_s = time.perf_counter() - t0
     art_bytes = dir_bytes(art_eq)
     qcfg = SampleConfig(**{**json.loads((art_eq / "config.json").read_text()), "checkpoint_path": str(art_eq)})
@@ -1552,7 +1564,7 @@ def vae_cli_phase(kernel_modules, run_cli, common, vae_dir, dpm_latents, mixed_l
     out = CLI_DIR / "png"
     res = run_cli("cli.sample dpm --vae-checkpoint", cli_sample.main,
                   common + ["--sampler", "dpm", "--vae-checkpoint", str(vae_dir), "--output-dir", str(out)],
-                  rope_attention_fwd=k1_run)
+                  rope_attention_fwd=k1_run, **float_glue(STEPS))
     files = sorted(out.glob("generated_image_*.png"), key=lambda f: int(f.name.split("_")[2]))
     if len(files) != BATCH or not all(np.array_equal(a, b) for a, b in zip(dpm_latents, res["latents"])):
         raise AssertionError(f"cli.sample --vae-checkpoint: {len(files)} PNGs; its latents differ from the dpm run's")
@@ -1565,7 +1577,7 @@ def vae_cli_phase(kernel_modules, run_cli, common, vae_dir, dpm_latents, mixed_l
     out_mixed = CLI_DIR / "png_mixed"
     packed = run_cli("cli.sample ddim mixed --vae-checkpoint", cli_sample.main,
                      common + ["--sampler", "ddim", "--image-sizes", sizes, "--vae-checkpoint", str(vae_dir),
-                               "--output-dir", str(out_mixed)], rope_attention_fwd=k1_run)
+                               "--output-dir", str(out_mixed)], rope_attention_fwd=k1_run, **float_glue(STEPS))
     mixed_files = sorted(out_mixed.glob("generated_image_*.png"), key=lambda f: int(f.name.split("_")[2]))
     want = [(MIXED_SIZES[i % 4][0], MIXED_SIZES[i % 4][1], 3) for i in range(BATCH)]
     if [png_pixels(f).shape for f in mixed_files] != want:
@@ -2096,7 +2108,8 @@ def _eval_phase(kernel_modules, smi, sample_step_ms, train_step_s):
     if not found:
         raise AssertionError(f"cli.sample printed no launch counts: {out[-2000:]}")
     launches = json.loads(found[-1].split(": ", 1)[1])
-    expect_launches("cli.sample -> PNGs", launches, rope_attention_fwd=DEPTH * STEPS)  # one batch, one forward a step
+    expect_launches("cli.sample -> PNGs", launches, rope_attention_fwd=DEPTH * STEPS,
+                    **float_glue(STEPS))  # one batch, one forward a step
     pngs = sorted(samples.glob("generated_image_*.png"))
     if len(pngs) != EVAL_IMAGES or any(png_pixels(f).shape != (256, 256, 3) for f in pngs):
         raise AssertionError(f"cli.sample wrote {len(pngs)} PNGs")
@@ -2293,9 +2306,11 @@ def main() -> None:
         raise AssertionError("the guided forward through the kernel disagrees with the plain one")
 
     labels = list(range(0, 1000, 1000 // BATCH))[:BATCH]
+    kernel_modules = (ra, quant, fused_adaln, attn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ra.reset_launches()
+    for mod in kernel_modules:
+        mod.reset_launches()
     t0 = time.perf_counter()
     latents = sampler.sample(labels, 256, 256, generator=gen)
     torch.cuda.synchronize()
@@ -2303,13 +2318,11 @@ def main() -> None:
     mixed = sampler.sample_mixed(labels[:4], MIXED_SIZES, generator=gen)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    sample_launches = ra.launches
-    expected = DEPTH * STEPS * 2
-    if sample_launches != expected or ra.bwd_launches != 0:
-        raise AssertionError(
-            f"kernels launched {sample_launches} (K1), {ra.bwd_launches} (K2) times on the sampling path, "
-            f"expected {expected}, 0"
-        )
+    sample_launches = kernel_launches(*kernel_modules)
+    expected = {k: 0 for k in sample_launches}
+    expected.update(rope_attention_fwd=DEPTH * STEPS * 2, **float_glue(STEPS * 2))  # sample and sample_mixed
+    if sample_launches != expected:
+        raise AssertionError(f"kernel launches on the sampling path {sample_launches}, expected {expected}")
     if tuple(latents.shape) != (BATCH, 4, 32, 32) or not torch.isfinite(latents).all():
         raise AssertionError(f"bad sample output: {tuple(latents.shape)}")
     want_shapes = [(4, ih // 8, iw // 8) for ih, iw in MIXED_SIZES]
@@ -2319,7 +2332,9 @@ def main() -> None:
     print(
         f"slice: FiT-XL/2 256x256 DDIM {STEPS} steps cfg {CFG_SCALE} batch {BATCH}: "
         f"{step_ms:.2f} ms/step, {BATCH / (t1 - t0):.3f} img/s; sample_mixed x4 "
-        f"{(t2 - t1) / STEPS * 1e3:.2f} ms/step; kernel launches {sample_launches}; "
+        f"{(t2 - t1) / STEPS * 1e3:.2f} ms/step; kernel launches {sample_launches['rope_attention_fwd']} K1, "
+        f"{sample_launches['adaln_modulate']} K5, {sample_launches['adaln_residual']} K5R, "
+        f"{sample_launches['swiglu_glue']} K6; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
         flush=True,
     )
@@ -2367,7 +2382,6 @@ def main() -> None:
     print(f"int8 sampler: FiT-XL/2 256x256 DDIM {STEPS} steps batch {BATCH}: {int8_step_ms:.2f} ms/step, "
           f"{BATCH / (int8_step_ms * STEPS / 1e3):.3f} img/s (bf16: {step_ms:.2f} ms/step)", flush=True)
 
-    kernel_modules = (ra, quant, fused_adaln, attn)
     serve_launches = serve_phase(qmodel, serve_mod, make_handler, kernel_modules)
     del qmodel, qsampler
     torch.cuda.empty_cache()
@@ -2484,8 +2498,8 @@ def main() -> None:
         return entry(name, "fit_tpu_torch/ops/csrc/rope_attention.cu", replaces, err, main["ms"], main["plain_ms"],
                      main["bound_ms"], main["bound_by"], main["library_ms"])
 
-    def entry(name, source, replaces, err, ms, plain_ms, bound, bound_by, library_ms=None, sample_count=0):
-        by_path = {"sample": sample_count, "serve": serve_launches[name], "train": train_launches[name],
+    def entry(name, source, replaces, err, ms, plain_ms, bound, bound_by, library_ms=None):
+        by_path = {"sample": sample_launches[name], "serve": serve_launches[name], "train": train_launches[name],
                    "dit": dit_launches[name], "cli": cli_totals[name], "pixels": pixel_launches[name],
                    "eval": eval_launches[name]}
         return {
@@ -2514,7 +2528,7 @@ def main() -> None:
         {**entry("rope_attention_fwd", "fit_tpu_torch/ops/csrc/rope_attention.cu",
                  "fit_tpu/ops/fused_attention.py:806", max(errs), fwd_main[torch.bfloat16]["ms"],
                  fwd_main[torch.bfloat16]["plain_ms"], fwd_main[torch.bfloat16]["bound_ms"],
-                 fwd_main[torch.bfloat16]["bound_by"], fwd_main[torch.bfloat16]["library_ms"], sample_launches),
+                 fwd_main[torch.bfloat16]["bound_by"], fwd_main[torch.bfloat16]["library_ms"]),
          "fp32": fp32_numbers(fwd_main[torch.float32], max(errs[1::2]))},
         {**entry("rope_attention_bwd", "fit_tpu_torch/ops/csrc/rope_attention_bwd.cu",
                  "fit_tpu/ops/fused_attention.py:1173", bwd_main["max_abs_err"], bwd_main["bwd_ms"],
@@ -2529,6 +2543,8 @@ def main() -> None:
         entry("adaln_quant", row_src, "fit_tpu/ops/quant.py:184", *rows["adaln_quant"]),
         entry("silu_mul_quant", row_src, "fit_tpu/ops/quant.py:148", *rows["silu_mul_quant"]),
         entry("adaln_modulate", row_src, "fit_tpu/ops/fused_adaln.py:29", *rows["adaln_modulate"]),
+        entry("adaln_residual", row_src, "none: K5 with the block's attention residual folded in",
+              *rows["adaln_residual"]),
         entry("swiglu_glue", row_src, "fit_tpu/ops/fused_adaln.py:66", *rows["swiglu_glue"]),
         {**strided_entry("masked_attention", "fit_tpu/ops/attention.py:90", 0),
          "fp32": fp32_numbers(strided[(0, torch.float32)], max(

@@ -134,7 +134,7 @@ class DiT(nn.Module):
         lengths = torch.full((n,), x.shape[1], dtype=torch.int32, device=x.device)
         for blk in self.blocks:
             x = blk(x, c, None, None, lengths, self.plain_kernels)
-        x = self.final(x, c)
+        x = self.final(x, c, self.plain_kernels)
         return unpatchify(x.float(), h, w, p, self.out_channels)
 
     def forward_with_cfg(self, x, t, y, cfg_scale: float) -> torch.Tensor:

@@ -69,9 +69,9 @@ class FiT(nn.Module):
     labels' device); ``force_drop_ids`` (N,) replaces them (1 = null class).
 
     ``quant``: "none", or "int8" for the w8a8 serving path. Setting
-    ``plain_kernels`` routes every kernel wrapper (attention and the int8
-    epilogues) to its plain PyTorch version on any device: the on-card
-    reference the kernels are held against.
+    ``plain_kernels`` routes every kernel wrapper (attention, the row glue
+    and the int8 epilogues) to its plain PyTorch version on any device: the
+    on-card reference the kernels are held against.
     """
 
     def __init__(
@@ -124,7 +124,7 @@ class FiT(nn.Module):
             FiTBlock(hidden_size, num_heads, mlp_ratio, quant, ffn, pos_kind == "rotate", device=device)
             for _ in range(depth)
         )
-        self.final = FinalLayer(hidden_size, patch_size, self.out_channels, device=device)
+        self.final = FinalLayer(hidden_size, patch_size, self.out_channels, quant, device=device)
         self.reset_parameters(generator)
 
     @property
@@ -182,7 +182,7 @@ class FiT(nn.Module):
                 x = checkpoint(blk, x, c, cos, sin, lengths, self.plain_kernels, use_reentrant=False)
             else:
                 x = blk(x, c, cos, sin, lengths, self.plain_kernels)
-        x = self.final(x, c)
+        x = self.final(x, c, self.plain_kernels)
         if not train:
             x = unpatchify(x.float(), h, w, self.patch_size, self.out_channels)
         return x

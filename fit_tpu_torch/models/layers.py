@@ -12,6 +12,12 @@ flax param tree. Under ``quant="int8"`` the projections of
 block feeds them through the fused quant epilogues ``adaln_quant`` and
 ``silu_mul_quant``.
 
+In a float forward that needs no backward, on the card (:func:`fused_glue`:
+sampling, serving, validation), the block's row glue runs in the fused row
+kernels of ``fit_tpu_torch.ops.fused_adaln``: each LayerNorm + modulate in
+K5, the attention residual with the FFN's LayerNorm + modulate in K5R, and
+the SwiGLU product in K6. Training and every CPU forward keep the eager ops.
+
 ``plain=True`` in a forward runs every kernel wrapper's plain PyTorch
 version on any device (the reference the kernels are held against).
 """
@@ -26,12 +32,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from fit_tpu_torch.ops.attention import masked_attention
+from fit_tpu_torch.ops.fused_adaln import adaln_modulate, adaln_residual, swiglu_glue
 from fit_tpu_torch.ops.quant import Int8Linear, adaln_quant, silu_mul_quant
 from fit_tpu_torch.ops.rope_attention import qkv_rope_attention
 
 __all__ = [
     "modulate",
     "layer_norm_fp32",
+    "fused_glue",
     "apply_rope",
     "linear",
     "Projection",
@@ -58,6 +66,20 @@ def layer_norm_fp32(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def fused_glue(x: torch.Tensor, quant: str) -> bool:
+    """Whether a block's row glue on activation x runs in the fused row
+    kernels: a float (``quant="none"``) bf16 or fp32 forward on the card
+    that needs no backward, since the kernels have none. A forward under
+    grad (training, remat's recompute) and every CPU forward take the eager
+    ops, so CPU parity with ``fit_tpu`` stays bit for bit."""
+    return (
+        quant == "none"
+        and x.is_cuda
+        and not torch.is_grad_enabled()
+        and x.dtype in (torch.bfloat16, torch.float32)
+    )
 
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, freqs_cis: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
@@ -173,7 +195,8 @@ class LabelEmbedder(nn.Module):
 class SwiGLU(nn.Module):
     """Gated FFN ``fc2(silu(fc1_g(x)) * fc1_x(x))``. Under ``quant="int8"``
     the product and its per-row int8 quantization are one fused pass
-    (:func:`silu_mul_quant`), whose ``(q, scale)`` feeds fc2."""
+    (:func:`silu_mul_quant`), whose ``(q, scale)`` feeds fc2; on the
+    :func:`fused_glue` route the product is K6 (:func:`swiglu_glue`)."""
 
     def __init__(self, dim: int, hidden: int, quant: str = "none", device=None):
         super().__init__()
@@ -187,6 +210,8 @@ class SwiGLU(nn.Module):
         val = dense(self.fc1_x, x, dtype)
         if self.quant == "int8":
             h = silu_mul_quant(gate, val, plain=plain)
+        elif fused_glue(gate, self.quant):
+            h = swiglu_glue(gate, val, plain=plain)
         else:
             h = F.silu(gate) * val
         return dense(self.fc2, h, dtype)
@@ -249,7 +274,10 @@ class FiTBlock(nn.Module):
     attention without RoPE (DiT, FiT's ``pos_kind="absolute"``), whose
     ``cos``/``sin`` are None. Under ``quant="int8"`` each LayerNorm +
     modulate is fused with the per-row int8 quantization of its result
-    (:func:`adaln_quant`), which feeds qkv and fc1."""
+    (:func:`adaln_quant`), which feeds qkv and fc1. On the
+    :func:`fused_glue` route the attention's LayerNorm + modulate is K5, and
+    the attention residual with the FFN's LayerNorm + modulate one K5R
+    pass; the FFN's residual stays eager."""
 
     def __init__(
         self,
@@ -274,31 +302,42 @@ class FiTBlock(nn.Module):
         else:
             raise ValueError(f"unknown ffn {ffn!r}: use 'swiglu' or 'mlp'")
 
-    def _modulated(self, x, shift, scale, plain: bool):
+    def _modulated(self, x, shift, scale, plain: bool, fused: bool):
         if self.quant == "int8":
             return adaln_quant(x, shift, scale, plain=plain)
+        if fused:
+            return adaln_modulate(x, shift, scale, plain=plain)
         return modulate(layer_norm_fp32(x), shift, scale)
 
     def forward(self, x, c, cos, sin, lengths, plain: bool = False) -> torch.Tensor:
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = linear(
             self.adaLN, F.silu(c)
         ).chunk(6, dim=-1)
-        attn_in = self._modulated(x, shift_msa, scale_msa, plain)
-        x = x + gate_msa[:, None, :] * self.attn(attn_in, cos, sin, lengths, x.dtype, plain)
-        ffn_in = self._modulated(x, shift_mlp, scale_mlp, plain)
+        fused = fused_glue(x, self.quant)
+        attn_in = self._modulated(x, shift_msa, scale_msa, plain, fused)
+        attn_out = self.attn(attn_in, cos, sin, lengths, x.dtype, plain)
+        if fused:
+            x, ffn_in = adaln_residual(x, attn_out, gate_msa, shift_mlp, scale_mlp, plain=plain)
+        else:
+            x = x + gate_msa[:, None, :] * attn_out
+            ffn_in = self._modulated(x, shift_mlp, scale_mlp, plain, fused)
         return x + gate_mlp[:, None, :] * self.ffn(ffn_in, x.dtype, plain)
 
 
 class FinalLayer(nn.Module):
-    """LayerNorm, 2-way adaLN modulate, then a projection to patches."""
+    """LayerNorm, 2-way adaLN modulate (K5 on the :func:`fused_glue` route
+    of the model's ``quant``), then a projection to patches."""
 
-    def __init__(self, hidden_size: int, patch_size: int, out_channels: int, device=None):
+    def __init__(self, hidden_size: int, patch_size: int, out_channels: int, quant: str = "none", device=None):
         super().__init__()
+        self.quant = quant
         self.adaLN = nn.Linear(hidden_size, 2 * hidden_size, device=device)
         self.linear = nn.Linear(
             hidden_size, patch_size * patch_size * out_channels, device=device
         )
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor, plain: bool = False) -> torch.Tensor:
         shift, scale = linear(self.adaLN, F.silu(c)).chunk(2, dim=-1)
+        if fused_glue(x, self.quant):
+            return linear(self.linear, adaln_modulate(x, shift, scale, plain=plain))
         return linear(self.linear, modulate(layer_norm_fp32(x), shift, scale))

@@ -4,14 +4,22 @@
 //
 // Replaces four TPU kernels:
 //   fit_tpu/ops/quant.py::_adaln_quant_kernel    -> adaln_warp_rows<T, C> (K3;
-//                                                   adaln_block_rows<T, true, C> past 1152)
-//   fit_tpu/ops/fused_adaln.py::_adaln_kernel    -> adaln_block_rows<T, false, C> (K5)
+//                                                   adaln_block_rows<T, true, false, C> past 1152)
+//   fit_tpu/ops/fused_adaln.py::_adaln_kernel    -> adaln_block_rows<T, false, false, C> (K5)
 //   fit_tpu/ops/quant.py::_silu_mul_quant_kernel -> silu_mul_rows<T, true, C> (K4)
 //   fit_tpu/ops/fused_adaln.py::_swiglu_kernel   -> silu_mul_rows<T, false, C> (K6)
+// and adds K5R, adaln_block_rows<T, false, true, C>: K5 with the FiT block's
+// attention residual folded in front of it (no TPU counterpart).
 //
 // adaLN, for one token row x of width D and its batch row b:
 //   mean = sum(x) / D,  var = sum((x - mean)^2) / D       (fp32, two passes)
 //   h    = (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
+// K5R first forms the row it normalizes from the block's residual stream x,
+// the attention's output y and the gate of the batch row:
+//   x_new = T(x + T(gate[b] * y))
+// rounded as the unfused block rounds it (the product to T, then the sum to
+// T, each from the exact fp32 result), so the residual stream keeps its bits;
+// x_new is stored beside h, which is K5 of x_new.
 // silu_mul_rows, for one row of width H:  h = g / (1 + exp(-g)) * v  (fp32)
 // Without QUANT, h is stored in the input dtype. With QUANT:
 //   s = max(max|h|, 1e-12) * (1/127),  q = clamp(rint(h / s), -127, 127)
@@ -39,10 +47,10 @@
 // a range check per value.
 //
 // D and H must be multiples of 8 and every pointer 16-byte aligned; shift
-// and scale are (B, D) with a row stride that is a multiple of 8 elements
-// (the chunks of a (B, 6D) adaLN output). Each reduction runs in a fixed
-// order, so two launches give the same bits and a row's result does not
-// depend on the other rows or on how rows are spread over blocks.
+// and scale (and K5R's gate) are (B, D) with a row stride that is a multiple
+// of 8 elements (the chunks of a (B, 6D) adaLN output). Each reduction runs
+// in a fixed order, so two launches give the same bits and a row's result
+// does not depend on the other rows or on how rows are spread over blocks.
 //
 // adaln_warp_rows (K3 for D <= 1152, every FiT and DiT width): a warp per
 // row, no block barrier. Lane l owns the quads (4 elements: 8 bytes of
@@ -59,10 +67,10 @@
 // launcher sizes rows_per_warp so that the whole grid is resident at once
 // (one wave).
 //
-// adaln_block_rows (K5, and K3 past 1152, up to 8192) and silu_mul_rows: one
-// block of 128 threads per row; thread i owns chunks (8 elements: one
-// 16-byte bf16 vector) i, i + 128, ..., at most C of them (C a compile-time
-// 1, 2, 4 or 8). The reductions go through warp shuffles and one
+// adaln_block_rows (K5, K5R, and K3 past 1152, up to 8192) and
+// silu_mul_rows: one block of 128 threads per row; thread i owns chunks (8
+// elements: one 16-byte bf16 vector) i, i + 128, ..., at most C of them (C a
+// compile-time 1, 2, 4 or 8). The reductions go through warp shuffles and one
 // shared-memory slot per warp.
 
 #include <cuda_bf16.h>
@@ -154,6 +162,18 @@ __device__ __forceinline__ void store_quad(bf16* p, const float (&v)[kQuad]) {
 
 __device__ __forceinline__ void store_quad(float* p, const float (&v)[kQuad]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// v rounded to T and back: what storing v in T and loading it gives.
+template <typename T>
+__device__ __forceinline__ float rounded(float v);
+template <>
+__device__ __forceinline__ float rounded<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float rounded<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 struct Add {
@@ -437,13 +457,23 @@ adaln_warp_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* _
   }
 }
 
-// adaLN, K5, and K3 for rows wider than kWarpMaxWidth: one block of 128
-// threads per row.
-template <typename T, bool QUANT, int C>
+// K5R's residual operands: y (rows, D), gate (B, D) at the row stride of
+// shift and scale, and x_new's destination (rows, D). Unused by K5 and K3.
+template <typename T>
+struct Residual {
+  const T* y;
+  const T* gate;
+  T* x_out;
+};
+
+// adaLN, K5, K5R (RESID) and K3 for rows wider than kWarpMaxWidth: one block
+// of 128 threads per row.
+template <typename T, bool QUANT, bool RESID, int C>
 __global__ void __launch_bounds__(kThreads)
 adaln_block_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* __restrict__ scale,
                  long long cond_stride, void* __restrict__ out, float* __restrict__ row_scale,
-                 int seq, int dim, float eps) {
+                 int seq, int dim, float eps, Residual<T> res) {
+  static_assert(!(QUANT && RESID), "K5R stores its result in T");
   __shared__ float smem[kWarps];
   const long long row = blockIdx.x;
   const long long b = row / seq;
@@ -457,6 +487,14 @@ adaln_block_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* 
     const int idx = threadIdx.x + c * kThreads;
     if (idx < chunks) {
       load8(x_row + idx * kChunk, v[c]);
+      if constexpr (RESID) {
+        float y[kChunk], g[kChunk];
+        load8(res.y + row * dim + idx * kChunk, y);
+        load8(res.gate + b * cond_stride + idx * kChunk, g);
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) v[c][i] = rounded<T>(__fadd_rn(v[c][i], rounded<T>(__fmul_rn(g[i], y[i]))));
+        store8(res.x_out + row * dim + idx * kChunk, v[c]);
+      }
 #pragma unroll
       for (int i = 0; i < kChunk; ++i) sum += v[c][i];
     }
@@ -554,13 +592,13 @@ cudaError_t launch_warp_rows(const T* x, const T* shift, const T* scale, long lo
   return cudaGetLastError();
 }
 
-// K3 up to 1152 wide takes the warp path with C = ceil(quads / 32); K5, and
-// K3 on wider rows, the block path with C, the chunks per thread, the
+// K3 up to 1152 wide takes the warp path with C = ceil(quads / 32); K5, K5R,
+// and K3 on wider rows, the block path with C, the chunks per thread, the
 // smallest of 1, 2, 4, 8 that covers the row.
-template <typename T, bool QUANT>
+template <typename T, bool QUANT, bool RESID = false>
 cudaError_t launch_adaln(const void* x, const void* shift, const void* scale,
                          long long cond_stride, void* out, float* row_scale, int rows, int seq,
-                         int dim, float eps, cudaStream_t stream) {
+                         int dim, float eps, cudaStream_t stream, Residual<T> res = {}) {
   const T* xp = static_cast<const T*>(x);
   const T* sh = static_cast<const T*>(shift);
   const T* sc = static_cast<const T*>(scale);
@@ -578,13 +616,13 @@ cudaError_t launch_adaln(const void* x, const void* shift, const void* scale,
   const int per_thread = (dim / kChunk + kThreads - 1) / kThreads;
   const dim3 grid(rows), block(kThreads);
   if (per_thread <= 1) {
-    adaln_block_rows<T, QUANT, 1><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
+    adaln_block_rows<T, QUANT, RESID, 1><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
   } else if (per_thread <= 2) {
-    adaln_block_rows<T, QUANT, 2><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
+    adaln_block_rows<T, QUANT, RESID, 2><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
   } else if (per_thread <= 4) {
-    adaln_block_rows<T, QUANT, 4><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
+    adaln_block_rows<T, QUANT, RESID, 4><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
   } else if (per_thread <= 8) {
-    adaln_block_rows<T, QUANT, 8><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps);
+    adaln_block_rows<T, QUANT, RESID, 8><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -633,6 +671,21 @@ int adaln_rows_fwd(const void* x, const void* shift, const void* scale, long lon
   }
   return quant ? launch_adaln<float, true>(x, shift, scale, cond_stride, out, rs, rows, seq, dim, eps, s)
                : launch_adaln<float, false>(x, shift, scale, cond_stride, out, rs, rows, seq, dim, eps, s);
+}
+
+// K5R: x_out = x + gate * y (rounded as the unfused block rounds it) and
+// out = K5 of x_out, all in the input dtype. y and x_out are (rows, dim);
+// gate is (B, dim) at the row stride of shift and scale.
+int adaln_resid_rows_fwd(const void* x, const void* y, const void* gate, const void* shift, const void* scale,
+                         long long cond_stride, void* x_out, void* out, int rows, int seq, int dim, float eps,
+                         int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    const Residual<bf16> res{static_cast<const bf16*>(y), static_cast<const bf16*>(gate), static_cast<bf16*>(x_out)};
+    return launch_adaln<bf16, false, true>(x, shift, scale, cond_stride, out, nullptr, rows, seq, dim, eps, s, res);
+  }
+  const Residual<float> res{static_cast<const float*>(y), static_cast<const float*>(gate), static_cast<float*>(x_out)};
+  return launch_adaln<float, false, true>(x, shift, scale, cond_stride, out, nullptr, rows, seq, dim, eps, s, res);
 }
 
 int silu_mul_rows_fwd(const void* gate, const void* val, void* out, void* row_scale, int rows,

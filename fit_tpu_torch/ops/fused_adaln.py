@@ -6,9 +6,14 @@ is the unfused composition of ``fit_tpu_torch.models.layers``;
 ``use_kernel=True`` is the fused function, computed in fp32 and cast once:
 on a CUDA tensor the wrapper launches ``csrc/row_quant.cu`` (its non-quant
 variants) or raises, on a CPU tensor (or with ``plain=True``) it runs the
-plain PyTorch version beside it. Like ``fit_tpu``, the model does not call
-these two; the int8 path calls the quantizing variants of the same kernels
-through ``fit_tpu_torch.ops.quant``, which binds them from here.
+plain PyTorch version beside it. :func:`adaln_residual` (K5R, no ``fit_tpu``
+counterpart) is :func:`adaln_modulate` with a FiT block's attention residual
+folded in front of it.
+
+The float blocks of ``fit_tpu_torch.models.layers`` call these three in a
+forward that needs no backward, on the card (``layers.fused_glue``); the
+int8 path calls the quantizing variants of the same kernels through
+``fit_tpu_torch.ops.quant``, which binds them from here.
 """
 
 from __future__ import annotations
@@ -22,8 +27,10 @@ from fit_tpu_torch.ops import LAUNCHES, _build
 
 __all__ = [
     "adaln_modulate",
+    "adaln_residual",
     "swiglu_glue",
     "adaln_reference",
+    "adaln_residual_reference",
     "swiglu_reference",
     "launches",
     "reset_launches",
@@ -31,7 +38,7 @@ __all__ = [
 
 # Kernel launches of each wrapper since the last reset_launches(), read as
 # the dict ``launches``: the ops package's LAUNCHES of these names.
-_KERNELS = ("adaln_modulate", "swiglu_glue")
+_KERNELS = ("adaln_modulate", "adaln_residual", "swiglu_glue")
 
 
 def reset_launches() -> None:
@@ -54,6 +61,15 @@ def adaln_reference(x, shift, scale, eps: float = 1e-6) -> torch.Tensor:
     normed = (xf - mean) * torch.rsqrt(var + eps)
     h = normed * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
     return h.to(x.dtype)
+
+
+def adaln_residual_reference(x, y, gate, shift, scale, eps: float = 1e-6) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Plain version of K5R: the attention residual ``x + gate * y`` as the
+    unfused block computes it (the product rounded to x's dtype, then the
+    sum), and :func:`adaln_reference` of that. x, y (B, T, D); gate, shift,
+    scale (B, D). Returns ``(x_new, h)``."""
+    x_new = x + gate[:, None, :] * y
+    return x_new, adaln_reference(x_new, shift, scale, eps)
 
 
 def swiglu_reference(gate, value) -> torch.Tensor:
@@ -81,6 +97,27 @@ def adaln_modulate(
         return adaln_reference(x, shift, scale, eps)
     out, _ = launch_adaln(x, shift, scale, eps, quant=False)
     LAUNCHES["adaln_modulate"] += 1
+    return out
+
+
+def adaln_residual(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    gate: torch.Tensor,
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    eps: float = 1e-6,
+    plain: bool = False,
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """A FiT block's attention residual and the FFN's adaLN in one pass:
+    ``x_new = x + gate * y``, with the unfused block's roundings, and
+    ``LN(x_new) * (1 + scale) + shift``. x, y: (B, T, D); gate, shift,
+    scale: (B, D). Returns ``(x_new, h)``, both (B, T, D) in x's dtype."""
+    if plain or x.device.type == "cpu":
+        return adaln_residual_reference(x, y, gate, shift, scale, eps)
+    out = launch_adaln_residual(x, y, gate, shift, scale, eps)
+    LAUNCHES["adaln_residual"] += 1
     return out
 
 
@@ -145,21 +182,28 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err})")
 
 
-def launch_adaln(x, shift, scale, eps: float, *, quant: bool):
-    """Launch ``adaln_rows<quant>`` on x's current stream. Returns
-    ``(out, row_scale)``: out in x's dtype and row_scale None, or int8 codes
-    and (B, T, 1) fp32 scales. Raises on what the kernel does not take."""
-    _check_first("x", x)
-    b, t, d = x.shape
-    for name, cond in (("shift", shift), ("scale", scale)):
+def _check_conditioning(x, **conds) -> None:
+    """Each (B, D) conditioning row tensor (shift, scale, gate: chunks of an
+    adaLN output) as the kernels read it."""
+    b, _, d = x.shape
+    for name, cond in conds.items():
         _check_rows(name, cond, x)
         if cond.dim() != 2 or tuple(cond.shape) != (b, d) or cond.stride(1) != 1 or cond.stride(0) % 8:
             raise ValueError(
                 f"{name} must be ({b}, {d}) with unit column stride and a row stride that is a "
                 f"multiple of 8, got {tuple(cond.shape)} strides {cond.stride()}"
             )
-    if shift.stride(0) != scale.stride(0):
-        raise ValueError("shift and scale must share a row stride")
+    if len({cond.stride(0) for cond in conds.values()}) > 1:
+        raise ValueError(f"{' and '.join(conds)} must share a row stride")
+
+
+def launch_adaln(x, shift, scale, eps: float, *, quant: bool):
+    """Launch ``adaln_rows<quant>`` on x's current stream. Returns
+    ``(out, row_scale)``: out in x's dtype and row_scale None, or int8 codes
+    and (B, T, 1) fp32 scales. Raises on what the kernel does not take."""
+    _check_first("x", x)
+    _check_conditioning(x, shift=shift, scale=scale)
+    b, t, d = x.shape
     rows, out, row_scale = _outputs(x, quant)
     if rows == 0:
         return out, row_scale
@@ -172,6 +216,29 @@ def launch_adaln(x, shift, scale, eps: float, *, quant: bool):
         )
     _raise_on(err, "adaln_rows")
     return out, row_scale
+
+
+def launch_adaln_residual(x, y, gate, shift, scale, eps: float):
+    """Launch K5R on x's current stream. Returns ``(x_new, h)`` in x's
+    dtype. Raises on what the kernel does not take."""
+    _check_first("x", x)
+    _check_first("y", y)
+    if y.shape != x.shape:
+        raise ValueError(f"y {tuple(y.shape)} != x {tuple(x.shape)}")
+    _check_rows("y", y, x)
+    _check_conditioning(x, gate=gate, shift=shift, scale=scale)
+    b, t, d = x.shape
+    x_new, out = torch.empty_like(x), torch.empty_like(x)
+    if b * t == 0:
+        return x_new, out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().adaln_resid_rows_fwd(
+            x.data_ptr(), y.data_ptr(), gate.data_ptr(), shift.data_ptr(), scale.data_ptr(), shift.stride(0),
+            x_new.data_ptr(), out.data_ptr(), b * t, t, d, eps, int(x.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(err, "adaln_resid_rows")
+    return x_new, out
 
 
 def launch_silu_mul(gate, value, *, quant: bool):
@@ -208,6 +275,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ptr, ptr, ptr, i64, ptr, ptr, i32, i32, i32, ctypes.c_float, i32, i32, ptr,
         ]
         lib.adaln_rows_fwd.restype = i32
+        if hasattr(lib, "adaln_resid_rows_fwd"):  # a build of a tree before K5R has none
+            lib.adaln_resid_rows_fwd.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, i64, ptr, ptr, i32, i32, i32, ctypes.c_float, i32, ptr,
+            ]
+            lib.adaln_resid_rows_fwd.restype = i32
         lib.silu_mul_rows_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.silu_mul_rows_fwd.restype = i32
         lib.row_quant_error_string.argtypes = [i32]

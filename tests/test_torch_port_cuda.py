@@ -34,7 +34,13 @@ Tolerances, against the plain versions on the same inputs:
   rounded once), a value under 2^-8 in magnitude judged at the ulp of 2^-8
   (where shift + n * (1 + scale) cancels to near zero, fp32 sums taken in
   another order differ by ~1e-7, many ulps of the tiny result); 1e-5 in
-  fp32 (the LayerNorm sums' order).
+  fp32 (the LayerNorm sums' order); K5R's residual bit for bit equal to the
+  eager ``x + gate * y`` and its modulated output as K5's, in fp32 within
+  1e-6 of max |plain|; each row's output the same bits whether its batch
+  row is launched alone or among 31 others;
+- a 2-block XL-width FiT forward under inference_mode with the row glue in
+  K5, K5R and K6 against the same forward through their plain versions:
+  3e-2 relative RMS (the bf16 bar); a forward under grad launches none.
 """
 
 import numpy as np
@@ -651,6 +657,127 @@ def test_row_kernels_reject_bad_arguments(cuda_device):
         flat = torch.zeros(2 * 4 * 64 + 1, device=cuda_device)
         quant.silu_mul_quant(flat[1:].view(2, 4, 64), x)
     assert quant.launches == {"adaln_quant": 0, "silu_mul_quant": 0}
+
+
+def residual_inputs(b, t, width, device, dtype, seed=0):
+    """K5R's inputs: x, y (B, T, D) and gate, shift, scale as the block
+    passes them, chunks of one (B, 6D) adaLN output."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((b, t, width), generator=gen, device=device) * 3 + 1).to(dtype)
+    y = torch.randn((b, t, width), generator=gen, device=device).to(dtype)
+    mod = torch.randn((b, 6 * width), generator=gen, device=device).to(dtype)
+    _, _, gate, shift, scale, _ = mod.chunk(6, dim=-1)
+    return x, y, gate, shift, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "b,t,width",
+    [
+        (64, 256, 1152),  # the serving cell: batch 32 with CFG, 16,384 rows
+        (200, 256, 1152),  # the sampling cell: batch 100 with CFG, 51,200 rows
+        (2, 7, 768),  # FiT-B's width, a ragged row count
+    ],
+)
+def test_residual_variant_matches_plain_version(cuda_device, b, t, width, dtype):
+    args = residual_inputs(b, t, width, cuda_device, dtype)
+    quant.reset_launches()
+    fused_adaln.reset_launches()
+    x_new, h = fused_adaln.adaln_residual(*args)
+    want_x, want_h = fused_adaln.adaln_residual(*args, plain=True)
+    torch.cuda.synchronize()
+    counts = {**quant.launches, **fused_adaln.launches}
+    assert counts == {k: int(k == "adaln_residual") for k in counts}
+    x, y, gate = args[:3]
+    assert torch.equal(x_new, x + gate[:, None, :] * y) and torch.equal(x_new, want_x)
+    assert h.dtype == dtype and h.shape == (b, t, width)
+    if dtype == torch.bfloat16:
+        assert bf16_ulps(h, want_h) <= 1
+    else:
+        assert (h - want_h).abs().max().item() <= 1e-6 * want_h.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adaln", "resid", "silu"])
+def test_row_glue_of_a_row_does_not_depend_on_its_batch(cuda_device, kind):
+    """A batch row's output from K5, K5R or K6 has the same bits launched
+    alone as among 31 other batch rows: one block a row, no split sum."""
+    if kind == "resid":
+        args = residual_inputs(32, 256, 1152, cuda_device, torch.bfloat16, seed=3)
+        fn = fused_adaln.adaln_residual
+    else:
+        args = row_inputs(kind, 32, 256, 1152 if kind == "adaln" else 3072, cuda_device, torch.bfloat16, seed=3)
+        fn = fused_adaln.adaln_modulate if kind == "adaln" else fused_adaln.swiglu_glue
+    whole = fn(*args)
+    for i in (0, 17, 31):
+        alone = fn(*(a[i : i + 1] for a in args))
+        for w, a in zip(whole if kind == "resid" else (whole,), alone if kind == "resid" else (alone,)):
+            assert torch.equal(w[i : i + 1], a)
+
+
+@pytest.mark.cuda
+def test_residual_variant_rejects_bad_arguments(cuda_device):
+    x, y, gate, shift, scale = residual_inputs(2, 4, 64, cuda_device, torch.float32)
+    fused_adaln.reset_launches()
+    with pytest.raises(ValueError, match="share a row stride"):
+        fused_adaln.adaln_residual(x, y, gate.contiguous(), shift, scale)
+    with pytest.raises(ValueError, match="y"):
+        fused_adaln.adaln_residual(x, y[:, :3], gate, shift, scale)
+    with pytest.raises(TypeError):
+        fused_adaln.adaln_residual(x, y.bfloat16(), gate, shift, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_adaln.adaln_residual(x, y.transpose(0, 1).contiguous().transpose(0, 1), gate, shift, scale)
+    assert fused_adaln.launches["adaln_residual"] == 0
+
+
+def two_block_xl(device):
+    """A FiT at XL width (1152, 16 heads of 72), depth 2, bf16, with every
+    parameter drawn N(0, 0.02), and one guided batch's token inputs."""
+    from fit_tpu_torch.models.fit import FiT
+
+    gen = torch.Generator(device).manual_seed(0)
+    model = FiT(hidden_size=1152, depth=2, num_heads=16, dtype=torch.bfloat16, device=device)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    n, side = 8, 16
+    x = torch.randn((n, side * side, 16), generator=gen, device=device)
+    fc = torch.from_numpy(rope_freqs_2d(72, side, side).astype(np.float32)).to(device)
+    lengths = torch.tensor([256, 256, 200, 130, 256, 256, 200, 130], dtype=torch.int32, device=device)
+    t = torch.full((n,), 500.0, device=device)
+    y = torch.arange(n, device=device)
+    return model, (x, t, y, fc.expand(n, side * side, 72)), lengths
+
+
+@pytest.mark.cuda
+def test_fit_forward_runs_its_row_glue_in_the_row_kernels(cuda_device):
+    model, args, lengths = two_block_xl(cuda_device)
+    drop = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    glue = ("adaln_modulate", "adaln_residual", "swiglu_glue")
+    fused_adaln.reset_launches()
+    with torch.inference_mode():
+        got = model(*args, lengths=lengths, force_drop_ids=drop)
+        torch.cuda.synchronize()
+        assert fused_adaln.launches == {"adaln_modulate": model.depth + 1, "adaln_residual": model.depth,
+                                        "swiglu_glue": model.depth}
+        fused_adaln.reset_launches()
+        model.plain_kernels = True
+        want = model(*args, lengths=lengths, force_drop_ids=drop)
+        model.plain_kernels = False
+    assert all(fused_adaln.launches[k] == 0 for k in glue)
+    rows = torch.arange(256, device=cuda_device)[None, :] < lengths[:, None]
+    got, want = got[rows].float(), want[rows].float()
+    assert torch.isfinite(got).all()
+    rel = ((got - want).pow(2).mean() / want.pow(2).mean()).sqrt().item()
+    assert rel <= 3e-2, rel
+
+    fused_adaln.reset_launches()
+    with torch.enable_grad():
+        out = model(*args, lengths=lengths, force_drop_ids=drop)
+        out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert all(fused_adaln.launches[k] == 0 for k in glue)
 
 
 @pytest.mark.cuda

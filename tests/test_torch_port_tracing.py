@@ -121,6 +121,7 @@ COUNTERS = [
     (quant, "launches", "adaln_quant"),
     (quant, "launches", "silu_mul_quant"),
     (fused_adaln, "launches", "adaln_modulate"),
+    (fused_adaln, "launches", "adaln_residual"),
     (fused_adaln, "launches", "swiglu_glue"),
 ]
 
