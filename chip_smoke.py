@@ -58,7 +58,14 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      forward against the plain kernels, with one step's host and device
      time by group; then one guided FiT-XL/2 forward with
      ``pos_kind="absolute"`` and ``ffn="mlp"`` over mixed sizes (prefix
-     masks), kernels vs plain. Then the bf16 and the fp32 K1's device time
+     masks), kernels vs plain. 7d: K7 (the sparse-MoE combine) and K6 on
+     the ``[gate | up]`` halves against their plain versions at the
+     DiT-MoE-G/2 cell's shapes (16,384 tokens, k 2, and 32,768 routed rows of
+     5632), with the kernel and plain times and the bound; then
+     DiT-MoE-G/2-16E2A's first two blocks at full width sample 256x256 (DDIM
+     5 steps, CFG 1.5, batch 32) after one guided forward against the plain
+     kernels, checking the output and every launch count, the grouped
+     GEMMs' included. Then the bf16 and the fp32 K1's device time
      at the three main-path shapes (phases 3, 6a and 7a) beside their
      predecessors', the bound (fp32: on the 3xTF32 basis, the FMA rate's
      beside it), the plain version and SDPA;
@@ -114,7 +121,7 @@ Phases, each printing its lines; any failure raises (non-zero exit):
      it); and the native packer's batches/s against the numpy loader's on
      phase 6's latents (the same bytes; median and spread of 3 runs).
 The line before the last is a JSON object with each kernel's numbers
-(launches by path: sample, serve, train, dit, cli, pixels, eval; an entry's
+(launches by path: sample, serve, train, dit, ditmoe, cli, pixels, eval; an entry's
 "fp32" numbers carry their own launches); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -1194,6 +1201,129 @@ def dit_phase(kernel_modules):
         flush=True,
     )
     return launches, latents
+
+
+# 7d. DiT-MoE-G/2-16E2A (arXiv:2407.11633) at its published widths: D 1408,
+# 16 heads of 88, 16 routed SwiGLU experts of 5632, top-2 not renormalised,
+# a shared expert of 2816. The benchmark cell samples batch 32 with CFG: 64
+# rows x T 256 = 16,384 tokens a forward, 32,768 routed rows
+MOE_DIM, MOE_HEADS, MOE_EXPERTS, MOE_TOP_K, MOE_HIDDEN, MOE_SHARED = 1408, 16, 16, 2, 5632, 2816
+MOE_BATCH = 32
+MOE_TOKENS = 2 * MOE_BATCH * 256
+MOE_DEPTH = 2  # of 40: every width and every kernel of a block, in 2 x 0.8 GB of bf16
+MOE_STEPS = 5
+
+
+def moe_kernel_cases():
+    """Phase 7d: K7 (``moe_combine``: k = 2 expert rows and the shared row
+    a token) and K6 on the ``[gate | up]`` halves (``swiglu_halves``, every
+    routed row) against their plain versions, bf16, at the DiT-MoE cell's
+    shapes: at most one bf16 ulp apart, with the device time of both, the
+    bound and the kernel's share of it. Returns {name: (max_abs_err, kernel
+    ms, plain ms, bound ms, bound by)}."""
+    from fit_tpu_torch.cli.row_kernels_ab import bf16_ulps
+    from fit_tpu_torch.ops import fused_adaln
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    n, k, d, h = MOE_TOKENS, MOE_TOP_K, MOE_DIM, MOE_HIDDEN
+    ys = torch.randn((n * k, d), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.randperm(n * k, generator=gen, device="cuda").view(n, k)
+    w = torch.rand((n, k), generator=gen, device="cuda") * 0.5  # top-2 of 16 softmax scores
+    shared = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    gate_up = torch.randn((n * k, 2 * h), generator=gen, device="cuda").to(torch.bfloat16)
+    cases = {  # name: (shape, call, bytes read and written)
+        "moe_combine": (f"{n} x {d}, k {k}, with shared",
+                        lambda plain=False: fused_adaln.moe_combine(ys, pos, w, shared, plain=plain),
+                        (n * k + 2 * n) * d * 2 + n * k * (8 + 4)),
+        "swiglu_halves": (f"{n * k} x {h} ([gate | up] rows of {2 * h})",
+                          lambda plain=False: fused_adaln.swiglu_halves(gate_up, plain=plain),
+                          n * k * 3 * h * 2),
+    }
+    results = {}
+    for name, (shape, fn, nbytes) in cases.items():
+        got, want = fn(), fn(plain=True)
+        torch.cuda.synchronize()
+        ulps, err = bf16_ulps(got, want), (got.float() - want.float()).abs().max().item()
+        ms, plain_ms = device_ms(fn), device_ms(lambda: fn(plain=True))
+        bound, bound_by = bound_ms(nbytes, 0, torch.bfloat16)
+        print(
+            f"MoE kernel vs plain: {name} {shape} bf16 max_ulps={ulps:.3f} max_abs_err={err:.3e} "
+            f"kernel_us={ms * 1e3:.1f} plain_us={plain_ms * 1e3:.1f} (device); "
+            f"bound_us={bound * 1e3:.2f} by {bound_by}, {bound / ms:.0%} of it",
+            flush=True,
+        )
+        if not ulps <= 1:
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}: {ulps:.3f} ulps")
+        results[name] = (err, ms, plain_ms, bound, bound_by)
+    del ys, pos, w, shared, gate_up
+    return results
+
+
+def ditmoe_phase(kernel_modules, smi):
+    """Phase 7d: the sparse-MoE kernels at the cell's shapes
+    (:func:`moe_kernel_cases`), then DiT-MoE-G/2-16E2A's first MOE_DEPTH
+    blocks, bf16 with seeded random weights (router in fp32), through DiT's
+    sampling path at 256^2: one guided forward against the plain kernels,
+    then DDIM with CFG at the cell's batch, checking the output and every
+    launch count. Returns (the kernel cases, this path's launch counts)."""
+    from fit_tpu_torch.diffusion.gaussian import create_diffusion
+    from fit_tpu_torch.diffusion.samplers import ddim_sample_loop
+    from fit_tpu_torch.models.dit import DiT
+    from fit_tpu_torch.ops import LAUNCHES
+    from fit_tpu_torch.sampling import cast_for_sampling
+
+    print(f"phase 7d on: {smi}", flush=True)
+    cases = moe_kernel_cases()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    model = DiT(depth=MOE_DEPTH, hidden_size=MOE_DIM, num_heads=MOE_HEADS, num_experts=MOE_EXPERTS,
+                num_experts_per_tok=MOE_TOP_K, shared_hidden=MOE_SHARED, dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():  # the reference init zeroes adaLN and the final layer
+            p.normal_(0.0, 0.02, generator=gen)
+    cast_for_sampling(model, torch.device("cuda"))
+    diffusion = create_diffusion(str(MOE_STEPS), learn_sigma=True)
+    labels = torch.arange(0, 1000, 1000 // MOE_BATCH, device="cuda")[:MOE_BATCH]
+    y = torch.cat([labels, torch.full_like(labels, model.num_classes)])
+    z = torch.randn((MOE_BATCH, 4, 32, 32), generator=gen, device="cuda")
+    t = torch.full((2 * MOE_BATCH,), 500, device="cuda")
+    inputs = (torch.cat([z, z]), t, y)
+    rel = rel_rms(guided_forward(model, inputs), guided_forward(model, inputs, plain=True))
+    print(f"DiT-MoE-G/2 ({MOE_DEPTH} blocks) guided forward, kernels vs plain kernels: rel_rms {rel:.3e} "
+          f"(tol {FORWARD_REL_RMS:g})", flush=True)
+    if not rel <= FORWARD_REL_RMS:
+        raise AssertionError("the guided DiT-MoE forward through the kernels disagrees with the plain one")
+
+    def model_fn(x, ts):
+        return model.forward_with_cfg(x, ts, y, CFG_SCALE)
+
+    for mod in kernel_modules:
+        mod.reset_launches()
+    LAUNCHES["moe_grouped_mm"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        latents = ddim_sample_loop(diffusion, model_fn, torch.cat([z, z]), clip_denoised=False)[:MOE_BATCH]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(*kernel_modules)
+    want = {k: 0 for k in launches}
+    want.update(float_glue(MOE_STEPS, MOE_DEPTH), masked_attention=MOE_DEPTH * MOE_STEPS,
+                swiglu_glue=2 * MOE_DEPTH * MOE_STEPS,  # the routed rows and the shared expert's
+                moe_combine=MOE_DEPTH * MOE_STEPS)
+    if launches != want or LAUNCHES["moe_grouped_mm"] != 2 * MOE_DEPTH * MOE_STEPS:
+        raise AssertionError(f"DiT-MoE sampling launches {launches} and {LAUNCHES['moe_grouped_mm']} grouped "
+                             f"GEMMs, expected {want} and {2 * MOE_DEPTH * MOE_STEPS}")
+    if tuple(latents.shape) != (MOE_BATCH, 4, 32, 32) or not torch.isfinite(latents).all():
+        raise AssertionError(f"bad DiT-MoE sample output: {tuple(latents.shape)}")
+    print(
+        f"DiT-MoE-G/2 ({MOE_DEPTH} of 40 blocks) 256x256 DDIM {MOE_STEPS} steps cfg {CFG_SCALE} batch {MOE_BATCH} "
+        f"({2 * MOE_BATCH} rows x T 256), bf16: {wall / MOE_STEPS * 1e3:.2f} ms/step (first call, host-paced); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}",
+        flush=True,
+    )
+    del model
+    return cases, launches
 
 
 def fit_absolute_check(sampler_mod) -> None:
@@ -2441,6 +2571,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     dit_launches, dit_latents = dit_phase(kernel_modules)
     torch.cuda.empty_cache()
+    moe_cases, ditmoe_launches = ditmoe_phase(kernel_modules, smi)
+    torch.cuda.empty_cache()
     fit_absolute_check(sampler_mod)
 
     def k1_at(dtype):
@@ -2500,8 +2632,8 @@ def main() -> None:
 
     def entry(name, source, replaces, err, ms, plain_ms, bound, bound_by, library_ms=None):
         by_path = {"sample": sample_launches[name], "serve": serve_launches[name], "train": train_launches[name],
-                   "dit": dit_launches[name], "cli": cli_totals[name], "pixels": pixel_launches[name],
-                   "eval": eval_launches[name]}
+                   "dit": dit_launches[name], "ditmoe": ditmoe_launches[name], "cli": cli_totals[name],
+                   "pixels": pixel_launches[name], "eval": eval_launches[name]}
         return {
             "name": name,
             "route": "cuda",
@@ -2545,7 +2677,11 @@ def main() -> None:
         entry("adaln_modulate", row_src, "fit_tpu/ops/fused_adaln.py:29", *rows["adaln_modulate"]),
         entry("adaln_residual", row_src, "none: K5 with the block's attention residual folded in",
               *rows["adaln_residual"]),
-        entry("swiglu_glue", row_src, "fit_tpu/ops/fused_adaln.py:66", *rows["swiglu_glue"]),
+        {**entry("swiglu_glue", row_src, "fit_tpu/ops/fused_adaln.py:66", *rows["swiglu_glue"]),
+         "halves": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"), moe_cases["swiglu_halves"]),
+                        shape=f"{MOE_TOKENS * MOE_TOP_K} x {MOE_HIDDEN}")},
+        {**entry("moe_combine", row_src, "none: the sparse-MoE combine (DiT-MoE)", *moe_cases["moe_combine"]),
+         "shape": f"{MOE_TOKENS} x {MOE_DIM}, k {MOE_TOP_K}, with shared"},
         {**strided_entry("masked_attention", "fit_tpu/ops/attention.py:90", 0),
          "fp32": fp32_numbers(strided[(0, torch.float32)], max(
              r["max_abs_err"] for (i, dt), r in strided.items() if dt == torch.float32 and STRIDED_CASES[i][0] == "masked_attention"))},

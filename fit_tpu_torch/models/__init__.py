@@ -1,7 +1,8 @@
 """The FiT and DiT denoisers, their layers and the flax weight converter.
 
-``fit_tpu.models`` also exports ``MoeSwiGLU``; the port has no mixture of
-experts yet.
+``fit_tpu.models`` also exports ``MoeSwiGLU`` (a top-1 Switch FFN), which
+the port has not ported; its mixture of experts is DiT-MoE's
+``SparseMoeBlock``.
 """
 
 from fit_tpu_torch._exports import lazy_exports
@@ -16,8 +17,10 @@ __all__, __getattr__, __dir__ = lazy_exports(
         ".dit": (
             "DiT",
             "DiT_models",
+            "DiT_MoE_models",
             "create_dit",
         ),
+        ".moe": ("SparseMoeBlock",),
         ".fit": (
             "FiT",
             "FiT_models",

@@ -270,7 +270,10 @@ class SelfAttention(nn.Module):
 
 class FiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning. ``ffn`` is
-    "swiglu" (FiT) or "mlp" (tanh-GELU, DiT's); ``use_rope=False`` is
+    "swiglu" (FiT), "mlp" (tanh-GELU, DiT's) or "sparse_moe" (DiT-MoE's
+    routed SwiGLU experts at ``mlp_ratio`` width, ``num_experts`` of them,
+    ``top_k`` a token, and a shared expert of width ``shared_hidden``:
+    ``fit_tpu_torch.models.moe``); ``use_rope=False`` is
     attention without RoPE (DiT, FiT's ``pos_kind="absolute"``), whose
     ``cos``/``sin`` are None. Under ``quant="int8"`` each LayerNorm +
     modulate is fused with the per-row int8 quantization of its result
@@ -288,6 +291,9 @@ class FiTBlock(nn.Module):
         ffn: str = "swiglu",
         use_rope: bool = True,
         device=None,
+        num_experts: int = 0,
+        top_k: int = 2,
+        shared_hidden: int = 0,
     ):
         super().__init__()
         self.quant = quant
@@ -297,10 +303,17 @@ class FiTBlock(nn.Module):
             self.ffn = SwiGLU(hidden_size, int(hidden_size * mlp_ratio * 2 / 3), quant, device=device)
         elif ffn == "mlp":
             self.ffn = GeluMlp(hidden_size, int(hidden_size * mlp_ratio), quant, device=device)
+        elif ffn == "sparse_moe":
+            if quant != "none":
+                raise ValueError(f"ffn='sparse_moe' has no {quant} path")
+            from fit_tpu_torch.models.moe import SparseMoeBlock  # here: moe imports this module
+
+            self.ffn = SparseMoeBlock(hidden_size, int(hidden_size * mlp_ratio), num_experts, top_k, shared_hidden,
+                                      device=device)
         elif ffn == "moe":
-            raise ValueError("ffn='moe' is not ported yet (ROADMAP Queue 1, item 9)")
+            raise ValueError("ffn='moe' (fit_tpu's top-1 Switch MoeSwiGLU) is not ported yet (ROADMAP Queue 1, item 9)")
         else:
-            raise ValueError(f"unknown ffn {ffn!r}: use 'swiglu' or 'mlp'")
+            raise ValueError(f"unknown ffn {ffn!r}: use 'swiglu', 'mlp' or 'sparse_moe'")
 
     def _modulated(self, x, shift, scale, plain: bool, fused: bool):
         if self.quant == "int8":

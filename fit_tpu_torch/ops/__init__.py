@@ -10,7 +10,8 @@ __all__ += ["LAUNCHES", "launch_counts"]
 # Kernel launches by kernel name, since each module's last reset_launches();
 # the wrappers add to it, and each module's ``launches`` attributes read it.
 KERNELS = ("rope_attention_fwd", "rope_attention_bwd", "rope_flash_attention", "masked_attention", "adaln_quant",
-           "silu_mul_quant", "adaln_modulate", "adaln_residual", "swiglu_glue")
+           "silu_mul_quant", "adaln_modulate", "adaln_residual", "swiglu_glue", "moe_grouped_mm",
+           "moe_combine")
 LAUNCHES = collections.Counter()
 
 

@@ -7,9 +7,15 @@
 //                                                   adaln_block_rows<T, true, false, C> past 1152)
 //   fit_tpu/ops/fused_adaln.py::_adaln_kernel    -> adaln_block_rows<T, false, false, C> (K5)
 //   fit_tpu/ops/quant.py::_silu_mul_quant_kernel -> silu_mul_rows<T, true, C> (K4)
-//   fit_tpu/ops/fused_adaln.py::_swiglu_kernel   -> silu_mul_rows<T, false, C> (K6)
+//   fit_tpu/ops/fused_adaln.py::_swiglu_kernel   -> silu_mul_rows<T, false, C> (K6;
+//                                                   swiglu_halves_fwd reads the halves of one row)
 // and adds K5R, adaln_block_rows<T, false, true, C>: K5 with the FiT block's
-// attention residual folded in front of it (no TPU counterpart).
+// attention residual folded in front of it (no TPU counterpart), and K7,
+// moe_combine_rows<T, C>: the sparse-MoE FFN's weighted sum of each token's
+// expert rows and its shared expert's row (no TPU counterpart: fit_tpu has
+// no DiT-MoE). K7 reads (k + 1) rows and writes one; at DiT-MoE-G/2's batch
+// 32 with CFG (16,384 rows of 1408, k = 2) that is ~185 MB, ~55 us at
+// 3.35 TB/s, where the eager gather, casts, products and sums move ~1.9 GB.
 //
 // adaLN, for one token row x of width D and its batch row b:
 //   mean = sum(x) / D,  var = sum((x - mean)^2) / D       (fp32, two passes)
@@ -538,12 +544,12 @@ adaln_block_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* 
 template <typename T, bool QUANT, int C>
 __global__ void __launch_bounds__(kThreads)
 silu_mul_rows(const T* __restrict__ gate, const T* __restrict__ val, void* __restrict__ out,
-              float* __restrict__ row_scale, int width) {
+              float* __restrict__ row_scale, int width, long long ld) {
   __shared__ float smem[kWarps];
   const long long row = blockIdx.x;
   const int chunks = width / kChunk;
-  const T* g_row = gate + row * width;
-  const T* v_row = val + row * width;
+  const T* g_row = gate + row * ld;
+  const T* v_row = val + row * ld;
 
   float h[C][kChunk];
 #pragma unroll
@@ -561,6 +567,51 @@ silu_mul_rows(const T* __restrict__ gate, const T* __restrict__ val, void* __res
     }
   }
   store_row<T, QUANT, C>(h, chunks, out, row_scale, row, width, smem);
+}
+
+// moe_combine_rows: one token row of the sparse-MoE FFN's output from its
+// k experts' rows (ys at pos[row, j], in the experts' sorted order) and the
+// shared expert's row, summed in fp32 in slot order and rounded once:
+//   out = T(((0 + w0 * y0) + w1 * y1 + ...) + shared)
+// each product and sum rounded on its own (__fmul_rn, __fadd_rn), as the
+// eager ops round them. One block of 128 threads per row, 8-element chunks.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+moe_combine_rows(const T* __restrict__ ys, const long long* __restrict__ pos, const float* __restrict__ w,
+                 const T* __restrict__ shared, T* __restrict__ out, int k, int width) {
+  const long long row = blockIdx.x;
+  const int chunks = width / kChunk;
+  float acc[C][kChunk];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) acc[c][i] = 0.0f;
+  }
+  for (int j = 0; j < k; ++j) {
+    const T* y_row = ys + pos[row * k + j] * width;
+    const float wj = w[row * k + j];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int idx = threadIdx.x + c * kThreads;
+      if (idx < chunks) {
+        float v[kChunk];
+        load8(y_row + idx * kChunk, v);
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) acc[c][i] = __fadd_rn(acc[c][i], __fmul_rn(wj, v[i]));
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int idx = threadIdx.x + c * kThreads;
+    if (idx < chunks) {
+      float v[kChunk];
+      load8(shared + row * width + idx * kChunk, v);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) acc[c][i] = __fadd_rn(acc[c][i], v[i]);
+      store8(out + row * width + idx * kChunk, acc[c]);
+    }
+  }
 }
 
 // The warp-per-row launch. rows_per_warp is the least that makes the grid
@@ -631,19 +682,41 @@ cudaError_t launch_adaln(const void* x, const void* shift, const void* scale,
 
 template <typename T, bool QUANT>
 cudaError_t launch_silu_mul(const void* gate, const void* val, void* out, float* row_scale,
-                            int rows, int width, cudaStream_t stream) {
+                            int rows, int width, long long ld, cudaStream_t stream) {
   const int per_thread = (width / kChunk + kThreads - 1) / kThreads;
   const dim3 grid(rows), block(kThreads);
   const T* g = static_cast<const T*>(gate);
   const T* v = static_cast<const T*>(val);
   if (per_thread <= 1) {
-    silu_mul_rows<T, QUANT, 1><<<grid, block, 0, stream>>>(g, v, out, row_scale, width);
+    silu_mul_rows<T, QUANT, 1><<<grid, block, 0, stream>>>(g, v, out, row_scale, width, ld);
   } else if (per_thread <= 2) {
-    silu_mul_rows<T, QUANT, 2><<<grid, block, 0, stream>>>(g, v, out, row_scale, width);
+    silu_mul_rows<T, QUANT, 2><<<grid, block, 0, stream>>>(g, v, out, row_scale, width, ld);
   } else if (per_thread <= 4) {
-    silu_mul_rows<T, QUANT, 4><<<grid, block, 0, stream>>>(g, v, out, row_scale, width);
+    silu_mul_rows<T, QUANT, 4><<<grid, block, 0, stream>>>(g, v, out, row_scale, width, ld);
   } else if (per_thread <= 8) {
-    silu_mul_rows<T, QUANT, 8><<<grid, block, 0, stream>>>(g, v, out, row_scale, width);
+    silu_mul_rows<T, QUANT, 8><<<grid, block, 0, stream>>>(g, v, out, row_scale, width, ld);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_moe_combine(const void* ys, const long long* pos, const float* w, const void* shared, void* out,
+                               int rows, int k, int width, cudaStream_t stream) {
+  const int per_thread = (width / kChunk + kThreads - 1) / kThreads;
+  const dim3 grid(rows), block(kThreads);
+  const T* y = static_cast<const T*>(ys);
+  const T* sh = static_cast<const T*>(shared);
+  T* o = static_cast<T*>(out);
+  if (per_thread <= 1) {
+    moe_combine_rows<T, 1><<<grid, block, 0, stream>>>(y, pos, w, sh, o, k, width);
+  } else if (per_thread <= 2) {
+    moe_combine_rows<T, 2><<<grid, block, 0, stream>>>(y, pos, w, sh, o, k, width);
+  } else if (per_thread <= 4) {
+    moe_combine_rows<T, 4><<<grid, block, 0, stream>>>(y, pos, w, sh, o, k, width);
+  } else if (per_thread <= 8) {
+    moe_combine_rows<T, 8><<<grid, block, 0, stream>>>(y, pos, w, sh, o, k, width);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -693,11 +766,38 @@ int silu_mul_rows_fwd(const void* gate, const void* val, void* out, void* row_sc
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* rs = static_cast<float*>(row_scale);
   if (is_bf16) {
-    return quant ? launch_silu_mul<bf16, true>(gate, val, out, rs, rows, width, s)
-                 : launch_silu_mul<bf16, false>(gate, val, out, rs, rows, width, s);
+    return quant ? launch_silu_mul<bf16, true>(gate, val, out, rs, rows, width, width, s)
+                 : launch_silu_mul<bf16, false>(gate, val, out, rs, rows, width, width, s);
   }
-  return quant ? launch_silu_mul<float, true>(gate, val, out, rs, rows, width, s)
-               : launch_silu_mul<float, false>(gate, val, out, rs, rows, width, s);
+  return quant ? launch_silu_mul<float, true>(gate, val, out, rs, rows, width, width, s)
+               : launch_silu_mul<float, false>(gate, val, out, rs, rows, width, width, s);
+}
+
+// K6 on the two halves of one (rows, 2 * width) projection [gate | up], as
+// a sparse-MoE expert's grouped GEMM and the shared expert write it: gate
+// is the row's first width elements and the value its last, at row stride
+// 2 * width; out is (rows, width).
+int swiglu_halves_fwd(const void* gate_up, void* out, int rows, int width, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long ld = 2LL * width;
+  if (is_bf16) {
+    const bf16* g = static_cast<const bf16*>(gate_up);
+    return launch_silu_mul<bf16, false>(g, g + width, out, nullptr, rows, width, ld, s);
+  }
+  const float* g = static_cast<const float*>(gate_up);
+  return launch_silu_mul<float, false>(g, g + width, out, nullptr, rows, width, ld, s);
+}
+
+// The sparse-MoE combine: out (rows, width) from ys (rows * k, width) at
+// pos (rows, k) int64, weighted by w (rows, k) fp32, plus shared (rows,
+// width).
+int moe_combine_fwd(const void* ys, const void* pos, const void* w, const void* shared, void* out, int rows, int k,
+                    int width, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* p = static_cast<const long long*>(pos);
+  const float* wt = static_cast<const float*>(w);
+  if (is_bf16) return launch_moe_combine<bf16>(ys, p, wt, shared, out, rows, k, width, s);
+  return launch_moe_combine<float>(ys, p, wt, shared, out, rows, k, width, s);
 }
 
 const char* row_quant_error_string(int err) {

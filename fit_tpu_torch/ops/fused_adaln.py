@@ -8,7 +8,11 @@ on a CUDA tensor the wrapper launches ``csrc/row_quant.cu`` (its non-quant
 variants) or raises, on a CPU tensor (or with ``plain=True``) it runs the
 plain PyTorch version beside it. :func:`adaln_residual` (K5R, no ``fit_tpu``
 counterpart) is :func:`adaln_modulate` with a FiT block's attention residual
-folded in front of it.
+folded in front of it; :func:`swiglu_halves` is K6 on the two halves of one
+``[gate | up]`` projection (the sparse-MoE experts' layout), and
+:func:`moe_combine` (K7, no ``fit_tpu`` counterpart) the sparse-MoE FFN's
+weighted sum of each token's expert rows and its shared expert's row. Their
+launches count in ``ops.LAUNCHES`` under "swiglu_glue" and "moe_combine".
 
 The float blocks of ``fit_tpu_torch.models.layers`` call these three in a
 forward that needs no backward, on the card (``layers.fused_glue``); the
@@ -29,6 +33,9 @@ __all__ = [
     "adaln_modulate",
     "adaln_residual",
     "swiglu_glue",
+    "swiglu_halves",
+    "moe_combine",
+    "moe_combine_reference",
     "adaln_reference",
     "adaln_residual_reference",
     "swiglu_reference",
@@ -38,7 +45,7 @@ __all__ = [
 
 # Kernel launches of each wrapper since the last reset_launches(), read as
 # the dict ``launches``: the ops package's LAUNCHES of these names.
-_KERNELS = ("adaln_modulate", "adaln_residual", "swiglu_glue")
+_KERNELS = ("adaln_modulate", "adaln_residual", "swiglu_glue", "moe_combine")
 
 
 def reset_launches() -> None:
@@ -132,6 +139,42 @@ def swiglu_glue(
         return swiglu_reference(gate, value)
     out, _ = launch_silu_mul(gate, value, quant=False)
     LAUNCHES["swiglu_glue"] += 1
+    return out
+
+
+def swiglu_halves(gate_up: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """``silu(gate) * up`` of a (..., 2H) ``[gate | up]`` projection: K6
+    reading both halves of each row in place (no copy of either). Returns
+    (..., H) in gate_up's dtype; the plain version is :func:`swiglu_reference`
+    of the two halves."""
+    h = gate_up.shape[-1] // 2
+    if plain or gate_up.device.type == "cpu":
+        return swiglu_reference(gate_up[..., :h], gate_up[..., h:])
+    out = launch_swiglu_halves(gate_up)
+    LAUNCHES["swiglu_glue"] += 1
+    return out
+
+
+def moe_combine_reference(ys, pos, w, shared) -> torch.Tensor:
+    """Plain version of K7: ``sum_j w[:, j] * ys[pos[:, j]]`` in fp32 (each
+    product rounded, then the sum over the slots), plus ``shared`` in fp32,
+    cast once to ys's dtype. ys (M, D); pos (N, k) int64; w (N, k) fp32;
+    shared (N, D). Returns (N, D)."""
+    n, k = pos.shape
+    acc = (ys.index_select(0, pos.reshape(-1)).view(n, k, -1).float() * w[..., None]).sum(dim=1)
+    return (acc + shared.float()).to(ys.dtype)
+
+
+def moe_combine(ys, pos, w, shared, *, plain: bool = False) -> torch.Tensor:
+    """The sparse-MoE FFN's output rows: each token's k expert rows of ``ys``
+    (at ``pos``) weighted by ``w``, plus its shared expert's row, in fp32 and
+    cast once (:func:`moe_combine_reference`). K7 on the card, one pass that
+    reads each input row once; the plain version on the CPU or with
+    ``plain=True``."""
+    if plain or ys.device.type == "cpu":
+        return moe_combine_reference(ys, pos, w, shared)
+    out = launch_moe_combine(ys, pos, w, shared)
+    LAUNCHES["moe_combine"] += 1
     return out
 
 
@@ -263,6 +306,61 @@ def launch_silu_mul(gate, value, *, quant: bool):
     return out, row_scale
 
 
+def launch_swiglu_halves(gate_up):
+    """Launch K6 on the halves of a contiguous (..., 2H) ``[gate | up]``
+    tensor; returns (..., H). Raises on what the kernel does not take."""
+    if gate_up.device.type != "cuda":
+        raise ValueError(f"no row kernel for device {gate_up.device}")
+    if gate_up.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"gate_up must be bf16 or fp32, got {gate_up.dtype}")
+    width = gate_up.shape[-1] // 2
+    if gate_up.shape[-1] % 2 or width % 8 or width > _MAX_WIDTH:
+        raise ValueError(f"each half of gate_up must be a multiple of 8 wide, at most {_MAX_WIDTH}; "
+                         f"got {tuple(gate_up.shape)}")
+    if not gate_up.is_contiguous():
+        raise ValueError("gate_up must be contiguous")
+    if gate_up.data_ptr() % 16:
+        raise ValueError("gate_up must start on a 16-byte boundary (the kernel moves 16-byte vectors)")
+    out = torch.empty((*gate_up.shape[:-1], width), dtype=gate_up.dtype, device=gate_up.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(gate_up.device):
+        stream = torch.cuda.current_stream(gate_up.device).cuda_stream
+        err = _lib().swiglu_halves_fwd(
+            gate_up.data_ptr(), out.data_ptr(), out.numel() // width, width, int(gate_up.dtype == torch.bfloat16),
+            stream,
+        )
+    _raise_on(err, "swiglu_halves")
+    return out
+
+
+def launch_moe_combine(ys, pos, w, shared):
+    """Launch K7; returns (N, D) in ys's dtype. Raises on what the kernel
+    does not take."""
+    _check_first("ys", ys[None])
+    n, k = pos.shape
+    if pos.dtype != torch.int64 or w.dtype != torch.float32 or tuple(w.shape) != (n, k):
+        raise TypeError(f"pos must be (N, k) int64 and w (N, k) fp32, got {pos.dtype} {tuple(pos.shape)} and "
+                        f"{w.dtype} {tuple(w.shape)}")
+    for name, t in (("pos", pos), ("w", w)):
+        if t.device != ys.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {ys.device}")
+    _check_rows("shared", shared, ys)
+    if tuple(shared.shape) != (n, ys.shape[1]) or not shared.is_contiguous():
+        raise ValueError(f"shared must be a contiguous ({n}, {ys.shape[1]}), got {tuple(shared.shape)}")
+    out = torch.empty((n, ys.shape[1]), dtype=ys.dtype, device=ys.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(ys.device):
+        stream = torch.cuda.current_stream(ys.device).cuda_stream
+        err = _lib().moe_combine_fwd(
+            ys.data_ptr(), pos.data_ptr(), w.data_ptr(), shared.data_ptr(), out.data_ptr(),
+            n, k, ys.shape[1], int(ys.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(err, "moe_combine")
+    return out
+
+
 def _lib() -> ctypes.CDLL:
     return bind(_build.load("row_quant"))
 
@@ -282,6 +380,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             lib.adaln_resid_rows_fwd.restype = i32
         lib.silu_mul_rows_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.silu_mul_rows_fwd.restype = i32
+        if hasattr(lib, "swiglu_halves_fwd"):  # a build of a tree before them has neither
+            lib.swiglu_halves_fwd.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+            lib.swiglu_halves_fwd.restype = i32
+            lib.moe_combine_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            lib.moe_combine_fwd.restype = i32
         lib.row_quant_error_string.argtypes = [i32]
         lib.row_quant_error_string.restype = ctypes.c_char_p
     return lib

@@ -78,11 +78,13 @@ def cast_for_sampling(model: torch.nn.Module, device: torch.device) -> torch.nn.
     """Move ``model`` (a ``FiT`` or a ``DiT``) to ``device`` and cast, in place, its floating
     parameters and buffers to the compute dtype ``model.dtype``, as
     ``fit_tpu``'s ``_cast_params`` does: int8 weights stay int8 and every
-    ``kernel_scale`` stays fp32 (``nn.Module.to(dtype=)`` would cast them)."""
+    ``kernel_scale`` stays fp32 (``nn.Module.to(dtype=)`` would cast them),
+    as does each parameter a module names in its ``fp32_params``."""
     model.to(device=device)
     for module in model.modules():
+        keep = getattr(module, "fp32_params", ())  # e.g. a sparse-MoE router
         for name, p in module.named_parameters(recurse=False):
-            if p.is_floating_point() and name != "kernel_scale":
+            if p.is_floating_point() and name != "kernel_scale" and name not in keep:
                 p.data = p.data.to(model.dtype)
         for name, b in module.named_buffers(recurse=False):
             if b.is_floating_point() and name != "kernel_scale":

@@ -40,7 +40,16 @@ Tolerances, against the plain versions on the same inputs:
   row is launched alone or among 31 others;
 - a 2-block XL-width FiT forward under inference_mode with the row glue in
   K5, K5R and K6 against the same forward through their plain versions:
-  3e-2 relative RMS (the bf16 bar); a forward under grad launches none.
+  3e-2 relative RMS (the bf16 bar); a forward under grad launches none;
+- DiT-MoE at G's widths: K6 on the halves of a [gate | up] row as K6 on
+  two tensors (one bf16 ulp, 1e-5 in fp32); the sparse-MoE block's grouped
+  GEMMs against its plain loop over experts on the same routes, 1e-2
+  relative RMS (bf16 products of another blocking, rounded once each;
+  measured ~2e-3); the block and a 2-block DiT-MoE forward under
+  ``torch.cuda.set_sync_debug_mode("error")``, which raises on any wait for
+  the card; K1 with RoPE off at G's head dim 88 (padded to 128) at 3e-2;
+  K7, the sparse-MoE combine, against its plain version: one bf16 ulp, 1e-6
+  relative in fp32 (the same products and sums, rounded one by one).
 """
 
 import numpy as np
@@ -595,6 +604,9 @@ def row_inputs(kind, b, t, width, device, dtype, seed=0):
         ("silu", 16, 256, 3072),  # XL SwiGLU hidden
         ("silu", 3, 33, 3072),
         ("silu", 2, 7, 2048),  # FiT-B's hidden
+        ("adaln", 64, 256, 1408),  # DiT-MoE-G/2: batch 32 with CFG
+        ("silu", 4, 256, 5632),  # DiT-MoE-G/2's expert width
+        ("silu", 4, 256, 2816),  # DiT-MoE-G/2's shared expert
     ],
 )
 def test_row_kernels_match_plain_versions(cuda_device, kind, b, t, width, with_quant, dtype):
@@ -678,6 +690,7 @@ def residual_inputs(b, t, width, device, dtype, seed=0):
         (64, 256, 1152),  # the serving cell: batch 32 with CFG, 16,384 rows
         (200, 256, 1152),  # the sampling cell: batch 100 with CFG, 51,200 rows
         (2, 7, 768),  # FiT-B's width, a ragged row count
+        (64, 256, 1408),  # DiT-MoE-G/2: batch 32 with CFG
     ],
 )
 def test_residual_variant_matches_plain_version(cuda_device, b, t, width, dtype):
@@ -760,7 +773,7 @@ def test_fit_forward_runs_its_row_glue_in_the_row_kernels(cuda_device):
         got = model(*args, lengths=lengths, force_drop_ids=drop)
         torch.cuda.synchronize()
         assert fused_adaln.launches == {"adaln_modulate": model.depth + 1, "adaln_residual": model.depth,
-                                        "swiglu_glue": model.depth}
+                                        "swiglu_glue": model.depth, "moe_combine": 0}
         fused_adaln.reset_launches()
         model.plain_kernels = True
         want = model(*args, lengths=lengths, force_drop_ids=drop)
@@ -904,3 +917,150 @@ def test_native_loader_bytes_on_the_card_host(cuda_device, tmp_path, mode):
         for k in b:
             assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
         assert torch.equal(torch.from_numpy(a["tokens"]).to(cuda_device).cpu(), torch.from_numpy(b["tokens"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,width", [(4096, 5632), (4096, 2816), (5, 8)])
+def test_swiglu_halves_matches_plain_version(cuda_device, rows, width, dtype):
+    """K6 reading the [gate | up] halves of each (rows, 2H) row in place."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + width)
+    gu = torch.randn((rows, 2 * width), generator=gen, device=cuda_device).to(dtype)
+    fused_adaln.reset_launches()
+    got = fused_adaln.swiglu_halves(gu)
+    torch.cuda.synchronize()
+    assert fused_adaln.launches["swiglu_glue"] == 1
+    want = fused_adaln.swiglu_glue(gu[:, :width].contiguous(), gu[:, width:].contiguous(), plain=True)
+    assert got.dtype == dtype and got.shape == (rows, width)
+    if dtype == torch.bfloat16:
+        assert bf16_ulps(got, want) <= 1
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        fused_adaln.swiglu_halves(torch.empty((4, 2 * 8200), device=cuda_device, dtype=dtype))
+
+
+def ditmoe_g_block(device, seed=0):
+    """A sparse-MoE block at DiT-MoE-G/2's widths (D 1408, 16 experts of
+    5632, top-2, shared 2816), bf16 with its router in fp32, and 2 x 256
+    rows of input."""
+    from fit_tpu_torch.models.moe import SparseMoeBlock
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    block = SparseMoeBlock(1408, 5632, 16, 2, 2816, device=device)
+    block.reset_parameters(gen)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name != "gate":
+                p.data = p.data.to(torch.bfloat16)
+    x = torch.randn((2, 256, 1408), generator=gen, device=device).to(torch.bfloat16)
+    return block, x
+
+
+@pytest.mark.cuda
+def test_sparse_moe_grouped_gemms_match_the_expert_loop(cuda_device):
+    from fit_tpu_torch.models import moe
+    from fit_tpu_torch.ops import LAUNCHES
+
+    block, x = ditmoe_g_block(cuda_device)
+    LAUNCHES["moe_grouped_mm"] = 0
+    with torch.inference_mode():
+        got = block(x, torch.bfloat16)
+        assert LAUNCHES["moe_grouped_mm"] == 2
+        want = block(x, torch.bfloat16, plain=True)
+        assert LAUNCHES["moe_grouped_mm"] == 2
+        idx, _ = moe.route(x.reshape(-1, 1408), block.gate, 2)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape and torch.isfinite(got).all()
+    assert torch.bincount(idx.reshape(-1), minlength=16).min() > 0  # every expert has rows
+    assert _rel_rms(got, want) <= 1e-2
+
+
+def ditmoe_two_blocks(device):
+    from fit_tpu_torch.models.dit import DiT
+    from fit_tpu_torch.sampling import cast_for_sampling
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    model = DiT(depth=2, hidden_size=1408, num_heads=16, num_experts=16, shared_hidden=2816, dtype=torch.bfloat16,
+                device=device)
+    with torch.no_grad():
+        for p in model.parameters():  # the reference init zeroes adaLN and the final layer
+            p.normal_(0.0, 0.02, generator=gen)
+    cast_for_sampling(model, device)
+    x = torch.randn((4, 4, 32, 32), generator=gen, device=device)
+    t = torch.full((4,), 500, device=device)
+    y = torch.tensor([1, 2, 1000, 1000], device=device)
+    return model, x, t, y
+
+
+@pytest.mark.cuda
+def test_the_ditmoe_forward_never_waits_for_the_card(cuda_device):
+    """No device-to-host wait in the block or in a guided DiT-MoE forward:
+    the sync debug mode raises on one (a warm-up call first builds the
+    model's host-made position table)."""
+    block, x = ditmoe_g_block(cuda_device, seed=1)
+    model, z, t, y = ditmoe_two_blocks(cuda_device)
+    with torch.inference_mode():
+        model.forward_with_cfg(z, t, y, 1.5)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            block(x, torch.bfloat16)
+            out = model.forward_with_cfg(z, t, y, 1.5)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out.shape == (4, 8, 32, 32) and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_ditmoe_forward_through_the_kernels_matches_plain(cuda_device):
+    """The 2-block DiT-MoE guided forward through K1, K5, K5R, K6 and the
+    grouped GEMMs against the same forward through their plain versions:
+    5e-2 relative RMS, the guided bf16 forwards' bar."""
+    model, z, t, y = ditmoe_two_blocks(cuda_device)
+    with torch.inference_mode():
+        got = model.forward_with_cfg(z, t, y, 1.5)
+        model.plain_kernels = True
+        want = model.forward_with_cfg(z, t, y, 1.5)
+        model.plain_kernels = False
+    assert _rel_rms(got, want) <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,lengths", [(256, (256,) * 8), (256, (256, 100, 1, 255))])
+def test_masked_attention_at_head_dim_88(cuda_device, t, lengths):
+    """K1 with RoPE off at DiT-MoE-G/2's head dim (1408 / 16 = 88, padded
+    to 128 inside the kernel), as SelfAttention(use_rope=False) feeds it."""
+    qkv, _, _, lens = make_inputs(8, 16, 88, t, lengths, cuda_device, torch.bfloat16)
+    q, k, v = qkv.view(len(lengths), t, 3, 16, 88).transpose(1, 3).unbind(2)
+    got = attn.masked_attention(q, k, v, lengths=lens)
+    want = attn.masked_attention_reference(q.float(), k.float(), v.float(), lens, 88**-0.5)
+    torch.cuda.synchronize()
+    assert_valid_rows_close(got, want, lengths, 3e-2, rows_axis=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,k,width", [(16384, 2, 1408), (33, 2, 1152), (3, 4, 8192)])
+def test_moe_combine_matches_plain_version(cuda_device, n, k, width, dtype):
+    from fit_tpu_torch.ops import LAUNCHES
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n + width)
+    ys = torch.randn((n * k, width), generator=gen, device=cuda_device).to(dtype)
+    pos = torch.randperm(n * k, generator=gen, device=cuda_device).view(n, k)
+    w = torch.rand((n, k), generator=gen, device=cuda_device)
+    shared = torch.randn((n, width), generator=gen, device=cuda_device).to(dtype)
+    LAUNCHES["moe_combine"] = 0
+    got = fused_adaln.moe_combine(ys, pos, w, shared)
+    torch.cuda.synchronize()
+    assert LAUNCHES["moe_combine"] == 1
+    want = fused_adaln.moe_combine(ys, pos, w, shared, plain=True)
+    assert got.dtype == dtype and got.shape == (n, width)
+    if dtype == torch.bfloat16:
+        assert bf16_ulps(got, want) <= 1
+    else:
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    with pytest.raises(TypeError):
+        fused_adaln.moe_combine(ys, pos.int(), w, shared)
+    with pytest.raises(ValueError):
+        fused_adaln.moe_combine(ys, pos, w.t().contiguous().t(), shared)  # a strided w

@@ -123,6 +123,7 @@ COUNTERS = [
     (fused_adaln, "launches", "adaln_modulate"),
     (fused_adaln, "launches", "adaln_residual"),
     (fused_adaln, "launches", "swiglu_glue"),
+    (fused_adaln, "launches", "moe_combine"),
 ]
 
 
