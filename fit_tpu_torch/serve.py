@@ -35,12 +35,14 @@ Counterpart of ``fit_tpu/serve.py``:
   (``fit_tpu_torch.utils.profiling``).
 * **Pixels.** With a ``vae`` (``fit_tpu_torch.vae.AutoencoderKL``) the
   worker decodes each batch on the card right after enqueueing its
-  sampling, one batched decode per distinct latent shape, and futures
-  resolve to (H, W, 3) uint8 images instead of latents. Each decode is
-  padded to ``batch_size`` with copies of its last latent: cuDNN picks its
-  convolution algorithm by batch size, and another algorithm rounds bf16
-  differently, so a static decode shape keeps a seeded request's pixels,
-  like its latent, independent of what shares its batch.
+  sampling, and futures resolve to (H, W, 3) uint8 images instead of
+  latents. The requests of one latent shape decode in calls of exactly
+  :data:`DECODE_ROWS` rows, the last call padded with copies of the
+  group's last latent, so the card decodes the rows it answers and little
+  more. The call's shape is fixed because cuDNN picks its convolution
+  algorithm by shape, and another algorithm rounds bf16 differently; at one
+  row a call nothing else shares the call either, so a seeded request's
+  pixels, like its latent, do not depend on what shares its batch.
 
 A worker thread and a queue here, and a stdlib HTTP front end in
 ``fit_tpu_torch.cli.serve``.
@@ -66,6 +68,14 @@ from fit_tpu_torch.utils import profiling
 from fit_tpu_torch.vae.model import to_uint8
 
 __all__ = ["SamplingServer", "ServerOverloaded", "DeadlineExceeded"]
+
+# Rows of every VAE decode call the server makes. cuDNN picks a convolution
+# algorithm by shape, and on an H100 a bf16 SD-VAE decode of 2 to 32 rows gave
+# a row other bits at another position of its call (a 336x192 image at 2, 4,
+# 8 and 32 rows), so a call of one row is the shape that keeps a request's
+# pixels its own. It decodes no padding either: 7.7 ms of device time a 256^2
+# row, against 4.9 ms a row at 8 rows and 4.7 at 32.
+DECODE_ROWS = 1
 
 
 class ServerOverloaded(RuntimeError):
@@ -306,19 +316,22 @@ class SamplingServer:
                 latents = self.sampler.sample_mixed(labels, sizes, generator=generator, z=z)
             if self.vae is None:
                 return latents
-            # one batched decode per latent shape, padded to the static batch
-            # size and enqueued behind the sampling
+            # each latent shape decodes in calls of DECODE_ROWS rows, enqueued
+            # behind the sampling; only a shape's last call is padded, with
+            # copies of its last latent, so every call has one fixed shape
             groups = {}
             for i in range(len(batch)):
                 groups.setdefault(tuple(latents[i].shape), []).append(i)
             out = list(latents)
             for idxs in groups.values():
-                with profiling.span("serve.decode", id=bid, rows=self.batch_size, images=len(idxs)):
-                    padded_idxs = idxs + [idxs[-1]] * (self.batch_size - len(idxs))
-                    images = self.vae.decode(torch.stack([latents[i] for i in padded_idxs]))
-                profiling.count("vae.decoded_rows", self.batch_size, id=bid)
-                for j, i in enumerate(idxs):
-                    out[i] = images[j]
+                for start in range(0, len(idxs), DECODE_ROWS):
+                    chunk = idxs[start:start + DECODE_ROWS]
+                    with profiling.span("serve.decode", id=bid, rows=DECODE_ROWS, images=len(chunk)):
+                        rows = chunk + [chunk[-1]] * (DECODE_ROWS - len(chunk))
+                        images = self.vae.decode(torch.stack([latents[i] for i in rows]))
+                    profiling.count("vae.decoded_rows", DECODE_ROWS, id=bid)
+                    for j, i in enumerate(chunk):
+                        out[i] = images[j]
             return out
         except Exception as exc:  # noqa: BLE001 — the batch's futures carry it
             for req in batch:

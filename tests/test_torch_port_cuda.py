@@ -49,7 +49,11 @@ Tolerances, against the plain versions on the same inputs:
   ``torch.cuda.set_sync_debug_mode("error")``, which raises on any wait for
   the card; K1 with RoPE off at G's head dim 88 (padded to 128) at 3e-2;
   K7, the sparse-MoE combine, against its plain version: one bf16 ulp, 1e-6
-  relative in fp32 (the same products and sums, rounded one by one).
+  relative in fp32 (the same products and sums, rounded one by one);
+- served pixels, bit for bit: the bf16 SD-VAE's decode of a latent in a
+  call of the server's ``DECODE_ROWS`` rows at any position beside any
+  latents, and a seeded 256^2 request served alone or beside requests of
+  other sizes.
 """
 
 import numpy as np
@@ -868,6 +872,65 @@ def test_vae_on_the_card(cuda_device, blocks):
     assert _rel_rms(dec[torch.float32], want_dec) <= 1e-5 and _rel_rms(enc[torch.float32], want_enc) <= 1e-5
     assert _rel_rms(dec[torch.bfloat16], dec[torch.float32]) <= 5e-2
     assert _rel_rms(enc[torch.bfloat16], enc[torch.float32]) <= 5e-2
+
+
+def _sd_vae_bf16(device):
+    from fit_tpu_torch.vae import AutoencoderKL
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        return AutoencoderKL((128, 256, 512, 512), dtype=torch.bfloat16, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(32, 32), (42, 24)], ids=["256x256", "336x192"])
+def test_a_served_decode_gives_a_latent_the_same_pixels_beside_any_others(cuda_device, hw):
+    """The server's decode call at the SD-VAE's widths in bf16: a latent
+    decoded in a call of ``DECODE_ROWS`` rows beside other latents, at
+    another position of the call, gives the same bits."""
+    from fit_tpu_torch.serve import DECODE_ROWS
+
+    c = DECODE_ROWS
+    vae = _sd_vae_bf16(cuda_device)
+    gen = torch.Generator(device="cpu").manual_seed(hw[0])
+    z = torch.randn(2 * c, 4, *hw, generator=gen).to(cuda_device)
+    with torch.inference_mode():
+        first = vae.decode(z[:c])[0]
+        last = vae.decode(torch.cat([z[c: 2 * c - 1], z[:1]]))[c - 1]
+    assert first.shape == (3, 8 * hw[0], 8 * hw[1])
+    assert torch.equal(first, last)
+
+
+@pytest.mark.cuda
+def test_a_seeded_served_image_does_not_depend_on_its_batch(cuda_device):
+    """A ``SamplingServer`` with the bf16 SD-VAE on the card: a seeded 256^2
+    request served alone and served beside another 256^2 request and
+    requests of three other sizes gives the same uint8 bits."""
+    from fit_tpu_torch.models.fit import FiT
+    from fit_tpu_torch.serve import SamplingServer
+
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    model = FiT(hidden_size=96, depth=2, num_heads=6, num_classes=10, dtype=torch.bfloat16, device=cuda_device)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    vae = _sd_vae_bf16(cuda_device)
+    mine = (3, 256, 256, 11)
+    others = [(1, 256, 256, 12), (2, 288, 224, 13), (4, 224, 288, 14), (5, 336, 192, 15)]
+
+    def serve(requests):
+        with SamplingServer(model, batch_size=8, max_batch_wait_s=0.5, num_sampling_steps=4, sampler="dpm",
+                            num_classes=10, device=cuda_device, vae=vae) as srv:
+            futs = [srv.submit(label, h, w, seed=seed) for label, h, w, seed in requests]
+            images = [f.result(timeout=300) for f in futs]
+            return images, srv.stats()
+
+    alone, _ = serve([mine])
+    among, stats = serve([others[0], others[1], mine, others[2], others[3]])
+    assert stats["batches"] == 1 and stats["served"] == 5
+    assert alone[0].shape == (256, 256, 3) and alone[0].dtype == np.uint8
+    assert [im.shape for im in among] == [(256, 256, 3), (288, 224, 3), (256, 256, 3), (224, 288, 3), (336, 192, 3)]
+    np.testing.assert_array_equal(alone[0], among[2])
 
 
 @pytest.fixture(scope="module")

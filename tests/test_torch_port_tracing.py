@@ -31,7 +31,7 @@ from test_torch_port_train import fit, logged, tiny_models, trainer_cfg, write_l
 
 from bench_torch.run import read_metric
 from bench_torch.trace import SLICE, Trace
-from fit_tpu_torch import ops
+from fit_tpu_torch import ops, serve
 from fit_tpu_torch.models.fit import FiT
 from fit_tpu_torch.ops import attention, fused_adaln, quant, rope_attention
 from fit_tpu_torch.serve import SamplingServer
@@ -212,7 +212,9 @@ def test_the_counts_equal_the_servers_stats(served):
     decodes = [e for e in entries if e.name == "serve.decode"]
     assert counts["serve.images"] == stats["served"] == n
     assert set(counts) == {"serve.images", "vae.decoded_rows"}
-    assert counts["vae.decoded_rows"] == sum(e.attrs["rows"] for e in decodes) == 4 * len(decodes)
+    # one span a decode call, each of DECODE_ROWS rows, padding counted
+    assert {e.attrs["rows"] for e in decodes} == {serve.DECODE_ROWS}
+    assert counts["vae.decoded_rows"] == sum(e.attrs["rows"] for e in decodes) == serve.DECODE_ROWS * len(decodes)
     assert sum(e.attrs["images"] for e in decodes) == n
 
 
