@@ -7,7 +7,7 @@
 Builds the model in ``--dtype`` (bf16 by default; float32 is the
 reference's 32-true precision, with TF32 off for the GEMMs), its AdamW
 state and one synthetic batch of 256² latents
-(the four aspect ratios of ``chip_smoke.py``'s Trainer phase, T = 256) on
+(four aspect ratios, T = 256) on
 the card and runs the train step of ``fit_tpu_torch.train.step`` (with
 per-block remat, as the Trainer runs pad packing, unless ``--no-remat``): two
 warm-up steps, ``--steps`` steps timed on the host clock (ending in a
@@ -41,7 +41,7 @@ from fit_tpu_torch.train.step import make_train_step, split_for_accumulation
 LATENTS = [(32, 32), (28, 36), (24, 40), (36, 28)]  # (h, w) of the 4-channel latents
 # K2's kernels: the prologue, then the dk/dv and dq passes on mma.sync (bf16)
 # or on 3xTF32 mma.sync (fp32); and the fp32 FMA kernels of trees before them
-# (delta and two passes), which cli.k2_fp32_ab profiles on the parent tree
+# (delta and two passes)
 K2_KERNELS = ("bwd_prologue_kernel", "bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_tf32_kernel",
               "bwd_dq_tf32_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel")
 GROUPS = [  # (group, substrings of the kernel names in it), first match wins

@@ -7,6 +7,10 @@ headers, so a build takes seconds). The build happens at first use, into
 a hash of its source, the shared ``csrc/*.cuh`` headers and the flags, so
 an edited source builds anew. Importing
 this module needs no ``nvcc``; :func:`load` raises if there is none.
+
+Each build keeps ptxas's ``-v`` report beside its library
+(:func:`ptxas_log`): :func:`ptxas_usage` reads each kernel's registers and
+spill bytes from it, and :func:`check_no_spill` fails on a spill.
 """
 
 from __future__ import annotations
@@ -14,13 +18,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
-__all__ = ["load", "nvcc_path", "BUILD_DIR"]
+__all__ = ["load", "nvcc_path", "ptxas_log", "ptxas_usage", "check_no_spill", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fit_tpu_torch"
@@ -50,16 +55,22 @@ def nvcc_path() -> str:
     )
 
 
+def _stem(src: Path) -> str:
+    """``<name>_<hash>``, the build's file name without its suffix."""
+    # the shared headers count too: an edited header builds every source anew
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return f"{src.stem}_{digest}"
+
+
 def load(name: str, src_dir: Path = CSRC) -> ctypes.CDLL:
     """Compile ``<src_dir>/<name>.cu`` (``csrc/`` unless another tree's is
     given) if its library is not built yet, and load it."""
     src = Path(src_dir) / f"{name}.cu"
     if str(src) in _loaded:
         return _loaded[str(src)]
-    # the shared headers count too: an edited header builds every source anew
-    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{name}_{digest}.so"
+    stem = _stem(src)
+    lib_path = BUILD_DIR / f"{stem}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build into a temporary name, then rename: a concurrent or cut-off
@@ -74,8 +85,43 @@ def load(name: str, src_dir: Path = CSRC) -> ctypes.CDLL:
                 f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
-        (BUILD_DIR / f"{name}_{digest}.log").write_text(proc.stdout + proc.stderr)
+        (BUILD_DIR / f"{stem}.log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     _loaded[str(src)] = lib
     return lib
+
+
+def ptxas_log(name: str) -> str:
+    """nvcc's output (ptxas ``-v``) of the build of ``csrc/<name>.cu``,
+    built first if it is not yet."""
+    load(name)
+    return (BUILD_DIR / f"{_stem(CSRC / f'{name}.cu')}.log").read_text()
+
+
+def ptxas_usage(log_text: str, pattern: str) -> Dict[tuple, Dict[str, int]]:
+    """Registers and spill store / load bytes of each kernel instantiation
+    in a ptxas ``-v`` log whose mangled name matches ``pattern``, keyed by
+    the pattern's groups (a group of digits as an int)."""
+    out, key = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            inst = re.search(pattern, m.group(1))
+            key = tuple(int(g) if g.isdigit() else g for g in inst.groups()) if inst else None
+            if key:
+                out[key] = {}
+        elif key and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[key]["spill_stores"], out[key]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif key and (m := re.search(r"Used (\d+) registers", line)):
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
+def check_no_spill(usage: Dict[tuple, Dict[str, int]], expected: int, guarded: Callable[[tuple], bool]) -> None:
+    """Raises unless ``usage`` holds ``expected`` instantiations and none
+    for which ``guarded(key)`` holds spills."""
+    spilled = sorted(k for k, info in usage.items()
+                     if guarded(k) and (info.get("spill_stores"), info.get("spill_loads")) != (0, 0))
+    if len(usage) != expected or spilled:
+        raise RuntimeError(f"{len(usage)} of {expected} instantiations in the ptxas log; spills at {spilled}")

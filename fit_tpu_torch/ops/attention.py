@@ -35,22 +35,7 @@ __all__ = [
     "masked_attention_fwd",
     "masked_attention_reference",
     "masked_attention_backward_reference",
-    "launches",
-    "reset_launches",
 ]
-
-# Launches of K1 through masked_attention_fwd since the last reset_launches(),
-# read as ``launches``: the ops package's LAUNCHES["masked_attention"].
-
-
-def reset_launches() -> None:
-    LAUNCHES["masked_attention"] = 0
-
-
-def __getattr__(name):
-    if name == "launches":
-        return LAUNCHES["masked_attention"]
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def mask_to_lengths(mask: torch.Tensor) -> torch.Tensor:

@@ -39,24 +39,7 @@ __all__ = [
     "adaln_reference",
     "adaln_residual_reference",
     "swiglu_reference",
-    "launches",
-    "reset_launches",
 ]
-
-# Kernel launches of each wrapper since the last reset_launches(), read as
-# the dict ``launches``: the ops package's LAUNCHES of these names.
-_KERNELS = ("adaln_modulate", "adaln_residual", "swiglu_glue", "moe_combine")
-
-
-def reset_launches() -> None:
-    for k in _KERNELS:
-        LAUNCHES[k] = 0
-
-
-def __getattr__(name):
-    if name == "launches":
-        return {k: LAUNCHES[k] for k in _KERNELS}
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def adaln_reference(x, shift, scale, eps: float = 1e-6) -> torch.Tensor:

@@ -41,11 +41,9 @@ __all__ = [
     "dynamic_quant",
     "int8_matmul",
     "is_quantized_artifact",
-    "launches",
     "load_quantized",
     "quantize_model",
     "quantize_params",
-    "reset_launches",
     "save_quantized",
     "silu_mul_quant",
     "silu_mul_quant_reference",
@@ -63,22 +61,7 @@ QUANT_KERNEL_PATHS = (
     ("ffn", "fc2"),
 )
 
-# Kernel launches of each wrapper since the last reset_launches(), read as
-# the dict ``launches``: the ops package's LAUNCHES of these names.
-_KERNELS = ("adaln_quant", "silu_mul_quant")
-
 Quantized = Tuple[torch.Tensor, torch.Tensor]  # (int8 codes (..., K), fp32 scales (..., 1))
-
-
-def reset_launches() -> None:
-    for k in _KERNELS:
-        LAUNCHES[k] = 0
-
-
-def __getattr__(name):
-    if name == "launches":
-        return {k: LAUNCHES[k] for k in _KERNELS}
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _rowwise_quant(h: torch.Tensor) -> Quantized:

@@ -18,10 +18,10 @@ Two kernels:
   log2-sum-exp ``lse2``
   (B, T, H) fp32, the residual of the backward
   (``_qkv_forward_chunked(..., with_lse=True)``). Three wrappers
-  launch it, each with its own count: :func:`rope_attention_fwd` (the
-  packed projection; ``launches``), :func:`rope_flash_attention`
-  (``flash_launches``) and ``fit_tpu_torch.ops.attention.masked_attention``
-  (RoPE off; its module's ``launches``).
+  launch it, each counted under its own name in ``ops.LAUNCHES``:
+  :func:`rope_attention_fwd` (the packed projection),
+  :func:`rope_flash_attention` and
+  ``fit_tpu_torch.ops.attention.masked_attention`` (RoPE off).
 * K2, :func:`rope_attention_bwd` -> ``csrc/rope_attention_bwd.cu``: dqkv
   (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T: a prologue into
   scratch the wrapper allocates, then dk/dv and dq passes on ``mma.sync``
@@ -57,31 +57,9 @@ __all__ = [
     "rope_attention_bwd",
     "qkv_rope_attention",
     "rope_flash_attention",
-    "launches",
-    "bwd_launches",
-    "flash_launches",
-    "reset_launches",
 ]
 
 LOG2_E = 1.4426950408889634  # softmax as exp2 with log2(e) folded into q
-
-# Launches of K1 through rope_attention_fwd, of K2 (rope_attention_bwd) and
-# of K1 through rope_flash_attention since the last reset_launches(), read as
-# these attributes: the ops package's LAUNCHES of these kernel names.
-_COUNTERS = {"launches": "rope_attention_fwd", "bwd_launches": "rope_attention_bwd",
-             "flash_launches": "rope_flash_attention"}
-
-
-def reset_launches() -> None:
-    for k in _COUNTERS.values():
-        LAUNCHES[k] = 0
-
-
-def __getattr__(name):
-    if name in _COUNTERS:
-        return LAUNCHES[_COUNTERS[name]]
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 
 def split_rope_tables(freqs_cis: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
     """Interleaved (..., d) ``[cos0, sin0, cos1, sin1, ...]`` table ->

@@ -36,13 +36,12 @@ Counterpart of ``fit_tpu/serve.py``:
 * **Pixels.** With a ``vae`` (``fit_tpu_torch.vae.AutoencoderKL``) the
   worker decodes each batch on the card right after enqueueing its
   sampling, and futures resolve to (H, W, 3) uint8 images instead of
-  latents. The requests of one latent shape decode in calls of exactly
-  :data:`DECODE_ROWS` rows, the last call padded with copies of the
-  group's last latent, so the card decodes the rows it answers and little
-  more. The call's shape is fixed because cuDNN picks its convolution
-  algorithm by shape, and another algorithm rounds bf16 differently; at one
-  row a call nothing else shares the call either, so a seeded request's
-  pixels, like its latent, do not depend on what shares its batch.
+  latents. Each answered request decodes alone, one row a call: the card
+  decodes the rows it answers and no padding, and a seeded request's
+  pixels, like its latent, do not depend on what shares its batch. Any
+  other row count breaks that: cuDNN picks its convolution algorithm by
+  shape, and on an H100 a bf16 SD-VAE decode of 2, 4, 8 or 32 rows gave a
+  336x192 row other bits at another position of its call.
 
 A worker thread and a queue here, and a stdlib HTTP front end in
 ``fit_tpu_torch.cli.serve``.
@@ -68,14 +67,6 @@ from fit_tpu_torch.utils import profiling
 from fit_tpu_torch.vae.model import to_uint8
 
 __all__ = ["SamplingServer", "ServerOverloaded", "DeadlineExceeded"]
-
-# Rows of every VAE decode call the server makes. cuDNN picks a convolution
-# algorithm by shape, and on an H100 a bf16 SD-VAE decode of 2 to 32 rows gave
-# a row other bits at another position of its call (a 336x192 image at 2, 4,
-# 8 and 32 rows), so a call of one row is the shape that keeps a request's
-# pixels its own. It decodes no padding either: 7.7 ms of device time a 256^2
-# row, against 4.9 ms a row at 8 rows and 4.7 at 32.
-DECODE_ROWS = 1
 
 
 class ServerOverloaded(RuntimeError):
@@ -316,22 +307,16 @@ class SamplingServer:
                 latents = self.sampler.sample_mixed(labels, sizes, generator=generator, z=z)
             if self.vae is None:
                 return latents
-            # each latent shape decodes in calls of DECODE_ROWS rows, enqueued
-            # behind the sampling; only a shape's last call is padded, with
-            # copies of its last latent, so every call has one fixed shape
-            groups = {}
-            for i in range(len(batch)):
-                groups.setdefault(tuple(latents[i].shape), []).append(i)
+            # each answered request decodes alone, enqueued behind the
+            # sampling: a call of more rows gives a 336x192 row other bits at
+            # another position (cuDNN's algorithm changes with the shape), and
+            # at one row it decodes no padding (7.7 ms of device time a 256^2
+            # row on an H100, against 4.9 ms a row at 8 rows)
             out = list(latents)
-            for idxs in groups.values():
-                for start in range(0, len(idxs), DECODE_ROWS):
-                    chunk = idxs[start:start + DECODE_ROWS]
-                    with profiling.span("serve.decode", id=bid, rows=DECODE_ROWS, images=len(chunk)):
-                        rows = chunk + [chunk[-1]] * (DECODE_ROWS - len(chunk))
-                        images = self.vae.decode(torch.stack([latents[i] for i in rows]))
-                    profiling.count("vae.decoded_rows", DECODE_ROWS, id=bid)
-                    for j, i in enumerate(chunk):
-                        out[i] = images[j]
+            for i in range(len(batch)):
+                with profiling.span("serve.decode", id=bid, rows=1, images=1):
+                    out[i] = self.vae.decode(latents[i][None])[0]
+                profiling.count("vae.decoded_rows", 1, id=bid)
             return out
         except Exception as exc:  # noqa: BLE001 — the batch's futures carry it
             for req in batch:

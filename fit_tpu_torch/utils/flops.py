@@ -1,5 +1,5 @@
-"""Analytic FLOP counts and the card's peak rates, for MFU and roofline
-bounds.
+"""Analytic FLOP counts, the card's peak rates, and the roofline bounds of
+the port's kernels.
 
 Counterpart of ``fit_tpu/utils/flops.py``: the same count of a FiT forward,
 by component, and a peak table keyed on ``torch.cuda.get_device_name()``.
@@ -10,6 +10,14 @@ Peaks are NVIDIA's data-sheet figures for the H100 SXM (dense, no sparsity,
 at its 700 W limit): 989 TFLOP/s bf16 on the tensor cores, 495 TFLOP/s
 TF32, 67 TFLOP/s fp32 outside the tensor cores, and 3.35 TB/s of HBM. A
 card set to a lower power limit runs below them.
+
+A kernel's bound (:func:`bound_us`) is the least time the card could take
+for the work one call needs, given as (FLOPs, bytes) by :func:`k1_work`,
+:func:`k2_work`, :func:`k2_pass_work` and :func:`row_work`. The attention
+counts take valid queries against valid keys (``2 * len**2 * d`` a product,
+row and head) and the bytes of valid tokens only, each input read once and
+each output written once: what the inputs need, as ``bench_torch/flops.py``
+counts it, not what a kernel does for the padding.
 """
 
 from __future__ import annotations
@@ -17,9 +25,21 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Optional
+from typing import Dict, Iterable, Optional, Tuple
 
-__all__ = ["FitFlops", "fit_forward_flops", "peak_flops", "peak_hbm_bw"]
+__all__ = [
+    "FitFlops",
+    "fit_forward_flops",
+    "peak_flops",
+    "peak_hbm_bw",
+    "bound_us",
+    "k1_work",
+    "k2_work",
+    "k2_pass_work",
+    "row_work",
+]
+
+Work = Tuple[float, float]  # (FLOPs, bytes) of one call
 
 
 @dataclasses.dataclass
@@ -135,3 +155,97 @@ def peak_hbm_bw(device_kind: Optional[str] = None) -> Optional[float]:
     """HBM bandwidth (byte/s); None when unknown."""
     hit = _PEAKS.get(device_kind if device_kind is not None else _device_kind())
     return hit["hbm"] if hit else None
+
+
+def bound_us(work: Work, compute: str = "bfloat16", device_kind: Optional[str] = None) -> Tuple[float, str]:
+    """The least time in µs the current (or named) device could take for
+    ``work``, (FLOPs, bytes): the larger of the FLOPs over the peak rate of
+    ``compute`` and the bytes over HBM bandwidth, and which of the two sets
+    it, "operations" or "bytes". ``compute`` is a :func:`peak_flops` type,
+    or "3xtf32": fp32-accurate products as three TF32 products each, at a
+    third of the TF32 rate. Raises for a device the peak table does not
+    know."""
+    rate = peak_flops(device_kind, "tf32" if compute == "3xtf32" else compute)
+    hbm = peak_hbm_bw(device_kind)
+    if rate is None or hbm is None:
+        raise ValueError(f"no peak rates for {device_kind if device_kind is not None else _device_kind()!r}")
+    t_ops = work[0] / (rate / 3 if compute == "3xtf32" else rate)
+    t_bytes = work[1] / hbm
+    return max(t_ops, t_bytes) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _attention_sizes(lengths: Iterable[int], heads: int, head_dim: int, elem_bytes: int):
+    """(tokens, a (token, all heads) activation's bytes, pair products)
+    of valid tokens: the products are ``2 * len**2 * d`` summed over rows
+    and heads."""
+    lengths = [int(n) for n in lengths]
+    pair = sum(2 * n * n * head_dim * heads for n in lengths)
+    return sum(lengths), heads * head_dim * elem_bytes, pair
+
+
+def k1_work(lengths: Iterable[int], heads: int, head_dim: int, elem_bytes: int = 2, rope: bool = True,
+            with_lse: bool = False) -> Work:
+    """K1, the attention forward, over rows of these valid lengths: two
+    products (scores and values); reads q, k, v, the RoPE tables (fp32,
+    ``head_dim`` wide each; none with RoPE off) and the lengths, writes the
+    output (and the fp32 lse a head)."""
+    lengths = list(lengths)
+    tokens, act, pair = _attention_sizes(lengths, heads, head_dim, elem_bytes)
+    nbytes = tokens * (3 * act + act) + 4 * len(lengths)
+    nbytes += tokens * 2 * head_dim * 4 if rope else 0
+    nbytes += tokens * heads * 4 if with_lse else 0
+    return float(2 * pair), float(nbytes)
+
+
+def k2_work(lengths: Iterable[int], heads: int, head_dim: int, elem_bytes: int = 2) -> Work:
+    """K2, the attention backward, all three passes: five products; reads
+    q, k, v, the output gradient, the output, the fp32 lse, the tables and
+    the lengths, writes dq, dk and dv."""
+    lengths = list(lengths)
+    tokens, act, pair = _attention_sizes(lengths, heads, head_dim, elem_bytes)
+    reads = tokens * (3 * act + act + act + heads * 4 + 2 * head_dim * 4) + 4 * len(lengths)
+    return float(5 * pair), float(reads + tokens * 3 * act)
+
+
+def k2_pass_work(lengths: Iterable[int], heads: int, head_dim: int, elem_bytes: int = 2) -> Dict[str, Work]:
+    """Each K2 pass alone, by its own inputs and outputs. The prologue
+    reads q, k, the output gradient, the output, the tables and the lse and
+    writes the rotated q and k and the head-major lse and delta (no
+    products); the dk/dv pass reads those, v, the output gradient, the
+    tables and the lengths, writes dk and dv and does 4 products (S, dP, dv,
+    dk); the dq pass reads the same, writes dq and does 3 (S, dP, dq)."""
+    lengths = list(lengths)
+    tokens, row, pair = _attention_sizes(lengths, heads, head_dim, elem_bytes)
+    act, tabs, stat = tokens * row, tokens * 2 * head_dim * 4, tokens * heads * 4
+    reads = 2 * act + act + act + tabs + 2 * stat + 4 * len(lengths)
+    return {
+        "prologue": (0.0, float(4 * act + tabs + stat + 2 * act + 2 * stat)),
+        "dkdv": (float(4 * pair), float(reads + 2 * act)),
+        "dq": (float(3 * pair), float(reads + act)),
+    }
+
+
+def row_work(kernel: str, rows: int, width: int, batch: int = 1, elem_bytes: int = 2, top_k: int = 2) -> Work:
+    """A row kernel over ``rows`` rows of ``width``, by its wrapper's name,
+    each input read once (a batch row's shift, scale and gate once per
+    batch row of ``batch``) and each output written once; no operations
+    count, the arithmetic being far below the ridge. "adaln_quant" and
+    "silu_mul_quant" write int8 codes and an fp32 scale a row;
+    "adaln_residual" reads x and y and writes the new residual and the
+    modulated row; "swiglu_halves" reads each row's ``[gate | up]``;
+    "moe_combine" reads ``top_k`` expert rows a token (with an int64
+    position and an fp32 weight each) and the shared expert's row, and
+    writes one, ``rows`` being tokens."""
+    act = rows * width * elem_bytes
+    cond = batch * width * elem_bytes
+    codes = rows * width + rows * 4
+    nbytes = {
+        "adaln_quant": act + 2 * cond + codes,
+        "adaln_modulate": act + 2 * cond + act,
+        "adaln_residual": 4 * act + 3 * cond,
+        "silu_mul_quant": 2 * act + codes,
+        "swiglu_glue": 3 * act,
+        "swiglu_halves": 3 * act,
+        "moe_combine": (top_k + 2) * act + rows * top_k * (8 + 4),
+    }[kernel]
+    return 0.0, float(nbytes)

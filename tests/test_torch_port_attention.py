@@ -23,6 +23,7 @@ import torch
 
 from fit_tpu.core.pos_embed import rope_freqs_2d
 from fit_tpu.ops import fused_attention as jfa
+from fit_tpu_torch.ops import launch_counts, reset_launches
 from fit_tpu_torch.ops import rope_attention as ra
 
 ATOL = 3e-5
@@ -68,11 +69,11 @@ CASES = [
 def test_reference_matches_qkv_pallas_kernel(h, d, t, lengths):
     qkv, fc, lens = make_inputs(0, len(lengths), t, h, d, lengths)
     cos, sin = ra.split_rope_tables(torch.from_numpy(fc))
-    ra.reset_launches()
+    reset_launches()
     got = ra.qkv_rope_attention(
         torch.from_numpy(qkv), cos, sin, torch.from_numpy(lens), d**-0.5, h
     ).numpy()
-    assert ra.launches == 0  # a CPU tensor never reaches the kernel
+    assert launch_counts()["rope_attention_fwd"] == 0  # a CPU tensor never reaches the kernel
     jcos, jsin = jfa.split_rope_tables(jnp.asarray(fc))
     want = np.asarray(
         jfa.qkv_rope_flash_attention(jnp.asarray(qkv), jcos, jsin, jnp.asarray(lens), d**-0.5, h)
@@ -216,10 +217,10 @@ def test_backward_matches_jax_grad(monkeypatch, regime, env, t, lengths):
     )(jnp.asarray(qkv)))
 
     x = torch.from_numpy(qkv).requires_grad_(True)
-    ra.reset_launches()
+    reset_launches()
     out = ra.qkv_rope_attention(x, cos, sin, torch.from_numpy(lens), D16**-0.5, H6)
     (got,) = torch.autograd.grad(out, x, torch.from_numpy(g))
-    assert (ra.launches, ra.bwd_launches) == (0, 0)  # CPU tensors: the plain versions
+    assert not any(launch_counts().values())  # CPU tensors: the plain versions
     np.testing.assert_allclose(got.numpy(), want, atol=GRAD_ATOL, rtol=0)
 
     o, lse = ra.rope_attention_fwd(torch.from_numpy(qkv), cos, sin, torch.from_numpy(lens), D16**-0.5, H6, with_lse=True)
@@ -321,9 +322,9 @@ def test_masked_attention_matches_fit_tpu(backend, t, lengths):
     backend and the Pallas _flash_kernel in interpret mode. Valid query rows
     only (the flash kernel writes zeros on wholly padded query blocks)."""
     q, k, v, mask = _bhtd(t + lengths[1], t, lengths)
-    at.reset_launches()
+    reset_launches()
     got = at.masked_attention(*(torch.from_numpy(a) for a in (q, k, v, mask))).numpy()
-    assert at.launches == 0
+    assert launch_counts()["masked_attention"] == 0
     want = np.asarray(jat.masked_attention(*(jnp.asarray(a) for a in (q, k, v, mask)), backend=backend))
     assert got.shape == want.shape == q.shape
     _valid_bhtd(got, want, lengths, MASK_ATOL)
@@ -384,9 +385,9 @@ def test_rope_flash_attention_matches_fit_tpu(monkeypatch, layout, lengths):
     t = 64
     qkv, fc, lens, cos, sin, _ = _port_inputs(20 + lengths[1], t, lengths)
     q, k, v = torch.from_numpy(qkv).view(2, t, 3, H6, D16).unbind(2)
-    ra.reset_launches()
+    reset_launches()
     got = ra.rope_flash_attention(q, k, v, cos, sin, torch.from_numpy(lens), D16**-0.5)
-    assert (ra.flash_launches, ra.launches) == (0, 0)
+    assert not any(launch_counts().values())
     jcos, jsin = jfa.split_rope_tables(jnp.asarray(fc))
     want = jfa.rope_flash_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)), jcos, jsin, jnp.asarray(lens), D16**-0.5)
     assert got.shape == want.shape == (2, t, H6, D16)

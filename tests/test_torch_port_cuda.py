@@ -2,7 +2,7 @@
 PyTorch versions. These tests need a CUDA card and skip elsewhere. The file
 imports no jax, so it runs where only PyTorch is installed:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py tests/test_torch_port_cuda_paths.py -q
 
 Tolerances, against the plain versions on the same inputs:
 - attention (max abs error on valid query rows, against the fp32 plain
@@ -51,9 +51,14 @@ Tolerances, against the plain versions on the same inputs:
   K7, the sparse-MoE combine, against its plain version: one bf16 ulp, 1e-6
   relative in fp32 (the same products and sums, rounded one by one);
 - served pixels, bit for bit: the bf16 SD-VAE's decode of a latent in a
-  call of the server's ``DECODE_ROWS`` rows at any position beside any
-  latents, and a seeded 256^2 request served alone or beside requests of
-  other sizes.
+  call of one row, the server's, and a seeded 256^2 request served alone or
+  beside requests of other sizes.
+
+Every test that launches a kernel asserts ``ops.launch_counts()``, and
+ptxas's report of each build shows no spill in the bf16 and fp32 K1 and K2
+at DP 64 and 80 nor in any width of K3's warp-per-row kernel. The paths
+through whole models, the command lines and the Trainer on the card are in
+``test_torch_port_cuda_paths.py``.
 """
 
 import numpy as np
@@ -61,8 +66,8 @@ import pytest
 import torch
 
 from fit_tpu_torch.core.pos_embed import rope_freqs_2d
+from fit_tpu_torch.ops import _build, fused_adaln, launch_counts, quant, reset_launches
 from fit_tpu_torch.ops import attention as attn
-from fit_tpu_torch.ops import fused_adaln, quant
 from fit_tpu_torch.ops import rope_attention as ra
 
 
@@ -73,6 +78,33 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def launched(**counts) -> dict:
+    """``ops.launch_counts()`` as it should read: these counts, every
+    other kernel 0."""
+    return {k: counts.get(k, 0) for k in launch_counts()}
+
+
+# The kernels' ptxas reports: (source, the mangled names' pattern, its
+# instantiations, the key group holding DP or None). The bf16 and fp32 K1
+# and K2 must not spill at the main paths' paddings, DP 64 and 80; K3's
+# warp-per-row kernel at no width (every FiT and DiT width to 1152).
+NO_SPILL = {
+    "bf16-K1": ("rope_attention", r"rope_attention_mma_kernelILi(\d+)ELb([01])E", 10, 0),
+    "fp32-K1": ("rope_attention", r"rope_attention_tf32_kernelILi(\d+)ELb([01])E", 10, 0),
+    "bf16-K2": ("rope_attention_bwd", r"bwd_(dkdv|dq)_mma_kernelILi(\d+)E", 10, 1),
+    "fp32-K2": ("rope_attention_bwd", r"bwd_(dkdv|dq)_tf32_kernelILi(\d+)E", 10, 1),
+    "K3-warp-rows": ("row_quant", r"adaln_warp_rowsI(13__nv_bfloat16|f)Li(\d+)E", 18, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(NO_SPILL))
+def test_kernels_do_not_spill(cuda_device, kernel):
+    source, pattern, count, dp = NO_SPILL[kernel]
+    usage = _build.ptxas_usage(_build.ptxas_log(source), pattern)
+    _build.check_no_spill(usage, count, lambda key: dp is None or key[dp] in (64, 80))
 
 
 def make_inputs(seed, h, d, t, lengths, device, dtype):
@@ -86,12 +118,17 @@ def make_inputs(seed, h, d, t, lengths, device, dtype):
     return (qkv.to(device, dtype), cos.to(device), sin.to(device), lens.to(device))
 
 
+PADDED16 = (256, 256, 200, 130, 64, 1, 255, 129, 256, 256, 224, 180, 256, 33, 2, 256)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize(
     "h,d,t,lengths",
     [
         (16, 72, 256, (256, 256, 200, 130, 64, 1, 255, 65)),  # XL, 256^2, padded rows
+        (16, 72, 256, PADDED16),  # XL sampling at batch 8 with CFG
+        (16, 64, 256, PADDED16),
         (16, 72, 1024, (1024, 700)),  # XL, 512^2 extrapolation
         (12, 64, 256, (256, 31)),  # S/B/L head dim
         (2, 16, 40, (40, 33, 17)),  # tile tails: T not a multiple of 64
@@ -102,10 +139,10 @@ def make_inputs(seed, h, d, t, lengths, device, dtype):
 )
 def test_kernel_matches_plain_version(cuda_device, dtype, atol, h, d, t, lengths):
     qkv, cos, sin, lens = make_inputs(0, h, d, t, lengths, cuda_device, dtype)
-    ra.reset_launches()
+    reset_launches()
     got = ra.qkv_rope_attention(qkv, cos, sin, lens, d**-0.5, h)
     torch.cuda.synchronize()
-    assert ra.launches == 1
+    assert launch_counts() == launched(rope_attention_fwd=1)
     assert got.dtype == dtype and got.shape == (len(lengths), t, h * d)
     want = ra.rope_attention_reference(qkv.float(), cos, sin, lens, d**-0.5, h)
     assert torch.isfinite(got).all()
@@ -148,11 +185,11 @@ GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 def test_lse_and_backward_match_plain_versions(cuda_device, dtype, h, d, t, lengths):
     qkv, cos, sin, lens = make_inputs(2, h, d, t, lengths, cuda_device, dtype)
     g = torch.randn((len(lengths), t, h * d), generator=torch.Generator(cuda_device).manual_seed(1), device=cuda_device).to(dtype)
-    ra.reset_launches()
+    reset_launches()
     out, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
     dqkv = ra.rope_attention_bwd(qkv, g, out, lse, cos, sin, lens, d**-0.5, h)
     torch.cuda.synchronize()
-    assert (ra.launches, ra.bwd_launches) == (1, 1)
+    assert launch_counts() == launched(rope_attention_fwd=1, rope_attention_bwd=1)
     assert torch.equal(out, ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h))  # lse changes nothing else
     _, lse_want = ra.rope_attention_reference(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
     tol = GRAD_REL[dtype]
@@ -175,21 +212,20 @@ def test_autograd_function_launches_k1_with_lse_and_k2(cuda_device):
     upstream gradient is made contiguous); inference: K1 alone, once."""
     qkv, cos, sin, lens = make_inputs(3, 12, 64, 96, (96, 40), cuda_device, torch.bfloat16)
     x = qkv.clone().requires_grad_(True)
-    ra.reset_launches()
+    reset_launches()
     out = ra.qkv_rope_attention(x, cos, sin, lens, 0.125, 12)
     g = torch.randn(out.shape[::-1], device=cuda_device).to(out.dtype).permute(2, 1, 0)
     (dx,) = torch.autograd.grad(out, x, g)
     torch.cuda.synchronize()
-    assert (ra.launches, ra.bwd_launches) == (1, 1)
+    assert launch_counts() == launched(rope_attention_fwd=1, rope_attention_bwd=1)
     o, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, 0.125, 12, with_lse=True)
     assert torch.equal(dx, ra.rope_attention_bwd(qkv, g.contiguous(), o, lse, cos, sin, lens, 0.125, 12))
-    ra.reset_launches()
+    reset_launches()
     with torch.inference_mode():
         ra.qkv_rope_attention(x, cos, sin, lens, 0.125, 12)
-    assert (ra.launches, ra.bwd_launches) == (1, 0)
+    assert launch_counts() == launched(rope_attention_fwd=1)
 
 
-PADDED16 = (256, 256, 200, 130, 64, 1, 255, 129, 256, 256, 224, 180, 256, 33, 2, 256)
 STRIDED_SHAPES = [
     (16, 72, 1024, (1024,) * 4),  # DiT-XL/2 512^2 (16 rows with CFG there)
     (16, 72, 1024, (1024, 700, 513, 1)),
@@ -219,11 +255,10 @@ def test_masked_attention_kernel_matches_plain_version(cuda_device, dtype, atol,
     SelfAttention(use_rope=False) feeds it."""
     qkv, _, _, lens = make_inputs(4, h, d, t, lengths, cuda_device, dtype)
     q, k, v = qkv.view(len(lengths), t, 3, h, d).transpose(1, 3).unbind(2)
-    ra.reset_launches()
-    attn.reset_launches()
+    reset_launches()
     got = attn.masked_attention(q, k, v, lengths=lens)
     torch.cuda.synchronize()
-    assert (attn.launches, ra.launches, ra.flash_launches) == (1, 0, 0)
+    assert launch_counts() == launched(masked_attention=1)
     assert got.dtype == dtype and got.shape == q.shape and got.transpose(1, 2).is_contiguous()
     want = attn.masked_attention_reference(q.float(), k.float(), v.float(), lens, d**-0.5)
     assert torch.isfinite(got).all()
@@ -243,10 +278,10 @@ def test_rope_flash_attention_kernel_matches_plain_version(cuda_device, dtype, a
         q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
     else:
         q, k, v = (x.contiguous() for x in qkv.view(b, t, 3, h, d).unbind(2))
-    ra.reset_launches()
+    reset_launches()
     got = ra.rope_flash_attention(q, k, v, cos, sin, lens, d**-0.5)
     torch.cuda.synchronize()
-    assert (ra.flash_launches, ra.launches) == (1, 0)
+    assert launch_counts() == launched(rope_flash_attention=1)
     assert got.dtype == dtype and got.shape == (b, t, h, d)
     want = ra.rope_flash_reference(q.float(), k.float(), v.float(), cos, sin, lens, d**-0.5)
     assert_valid_rows_close(got, want, lengths, atol)
@@ -266,8 +301,7 @@ def test_gradients_through_the_strided_entries(cuda_device, dtype):
     b = len(lengths)
     g = torch.randn((b, t, h, d), generator=torch.Generator(cuda_device).manual_seed(2), device=cuda_device).to(dtype)
     views = [x.clone().requires_grad_(True) for x in qkv.view(b, t, 3, h, d).unbind(2)]
-    ra.reset_launches()
-    attn.reset_launches()
+    reset_launches()
     out = attn.masked_attention(*(x.transpose(1, 2) for x in views), lengths=lens)
     grads = torch.autograd.grad(out, views, g.transpose(1, 2))
     want = attn.masked_attention_backward_reference(
@@ -278,7 +312,7 @@ def test_gradients_through_the_strided_entries(cuda_device, dtype):
     out = ra.rope_flash_attention(*views, cos, sin, lens, d**-0.5)
     grads = torch.autograd.grad(out, views, g)
     torch.cuda.synchronize()
-    assert (attn.launches, ra.launches, ra.bwd_launches, ra.flash_launches) == (1, 1, 1, 0)
+    assert launch_counts() == launched(masked_attention=1, rope_attention_fwd=1, rope_attention_bwd=1)
     o, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
     want = ra.rope_attention_backward_reference(qkv, g.reshape(b, t, h * d), o, lse, cos, sin, lens, d**-0.5, h)
     want = want.view(b, t, 3, h, d).unbind(2)
@@ -298,12 +332,12 @@ def test_strided_entries_reject_bad_views(cuda_device):
     qkv, cos, sin, lens = make_inputs(7, 2, 16, 16, (16, 16), cuda_device, torch.float32)
     wide = torch.zeros((2, 16, 3 * 32 + 4), device=cuda_device)[..., : 3 * 32]  # token stride 100
     q, k, v = wide.unflatten(-1, (3, 2, 16)).unbind(2)
-    ra.reset_launches()
+    reset_launches()
     with pytest.raises(ValueError, match="multiples of 8"):
         ra.rope_flash_attention(q, k, v, cos, sin, lens, 0.25)
     with pytest.raises(ValueError, match="multiples of 8"):
         attn.masked_attention(*(x.transpose(1, 2) for x in (q, k, v)), lengths=lens)
-    assert ra.flash_launches == 0
+    assert launch_counts() == launched()
 
 
 # The bf16 K1 (the mma.sync kernel) over its whole contract, through the C
@@ -518,10 +552,10 @@ def test_k2_matches_plain_version(cuda_device, dtype, d, t, lengths):
     h = 2 if t >= 1024 else 4
     args, want = k2_case(h, d, t, lengths, cuda_device, seed=d + t, dtype=dtype)
     torch.full_like(args[0], float("nan"))  # freed at once: the caching allocator gives K2's output this block
-    ra.reset_launches()
+    reset_launches()
     got = ra.rope_attention_bwd(*args).float()
     torch.cuda.synchronize()
-    assert ra.bwd_launches == 1 and torch.isfinite(got).all()
+    assert launch_counts() == launched(rope_attention_bwd=1) and torch.isfinite(got).all()
     c = h * d
     dv_scale = want[..., 2 * c :].abs().max().item()
     for i in range(3):
@@ -557,7 +591,8 @@ def test_k2_launches_repeat_bit_for_bit(cuda_device, dtype, h, d, t, lengths):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", K2_DTYPES, ids=["bf16", "fp32"])
 @pytest.mark.parametrize("h,d,t,lengths", [(12, 64, 256, (256, 200, 130, 64, 1, 255, 129, 33) * 8),
-                                           (2, 72, 2304, (2304, 1500, 1))], ids=["B2-T256", "XL-T2304"])
+                                           (2, 72, 2304, (2304, 1500, 1)), (16, 72, 4096, (4000,))],
+                         ids=["B2-T256", "XL-T2304", "XL-T4096"])
 def test_k2_passes_one_by_one_give_a_whole_call(cuda_device, dtype, h, d, t, lengths):
     """The prologue, the dk/dv pass and the dq pass launched one at a time
     (each reading what the earlier ones wrote into the scratch) write the
@@ -605,7 +640,10 @@ def row_inputs(kind, b, t, width, device, dtype, seed=0):
         ("adaln", 2, 3, 1160),  # one chunk past the widest row K3's warp takes: a block per row
         ("adaln", 64, 256, 1152),  # batch 32 with CFG: each warp walks several rows
         ("adaln", 40, 251, 1152),  # several rows a warp, and T no multiple of the rows a block takes
+        ("adaln", 200, 256, 1152),  # the sampling cell: batch 100 with CFG, 51,200 rows
         ("silu", 16, 256, 3072),  # XL SwiGLU hidden
+        ("silu", 64, 256, 3072),  # the serving cell's batch 32 with CFG
+        ("silu", 200, 256, 3072),
         ("silu", 3, 33, 3072),
         ("silu", 2, 7, 2048),  # FiT-B's hidden
         ("adaln", 64, 256, 1408),  # DiT-MoE-G/2: batch 32 with CFG
@@ -615,8 +653,7 @@ def row_inputs(kind, b, t, width, device, dtype, seed=0):
 )
 def test_row_kernels_match_plain_versions(cuda_device, kind, b, t, width, with_quant, dtype):
     args = row_inputs(kind, b, t, width, cuda_device, dtype)
-    quant.reset_launches()
-    fused_adaln.reset_launches()
+    reset_launches()
     if kind == "adaln":
         got = quant.adaln_quant(*args) if with_quant else fused_adaln.adaln_modulate(*args)
         want = quant.adaln_quant(*args, plain=True) if with_quant else fused_adaln.adaln_modulate(*args, plain=True)
@@ -626,8 +663,7 @@ def test_row_kernels_match_plain_versions(cuda_device, kind, b, t, width, with_q
         want = quant.silu_mul_quant(*args, plain=True) if with_quant else fused_adaln.swiglu_glue(*args, plain=True)
         name = "silu_mul_quant" if with_quant else "swiglu_glue"
     torch.cuda.synchronize()
-    counts = {**quant.launches, **fused_adaln.launches}
-    assert counts == {k: int(k == name) for k in counts}
+    assert launch_counts() == launched(**{name: 1})
     if with_quant:
         (q, s), (q_ref, s_ref) = got, want
         assert q.dtype == torch.int8 and q.shape == (b, t, width)
@@ -660,7 +696,7 @@ def test_adaln_quant_launches_repeat_bit_for_bit(cuda_device, b, t, dtype):
 @pytest.mark.cuda
 def test_row_kernels_reject_bad_arguments(cuda_device):
     x, shift, scale = row_inputs("adaln", 2, 4, 64, cuda_device, torch.float32)
-    quant.reset_launches()
+    reset_launches()
     with pytest.raises(ValueError, match="multiple of 8"):
         quant.adaln_quant(x[..., :60].contiguous(), shift[:, :60], scale[:, :60])
     with pytest.raises(ValueError, match="contiguous"):
@@ -672,7 +708,7 @@ def test_row_kernels_reject_bad_arguments(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         flat = torch.zeros(2 * 4 * 64 + 1, device=cuda_device)
         quant.silu_mul_quant(flat[1:].view(2, 4, 64), x)
-    assert quant.launches == {"adaln_quant": 0, "silu_mul_quant": 0}
+    assert launch_counts() == launched()
 
 
 def residual_inputs(b, t, width, device, dtype, seed=0):
@@ -699,13 +735,11 @@ def residual_inputs(b, t, width, device, dtype, seed=0):
 )
 def test_residual_variant_matches_plain_version(cuda_device, b, t, width, dtype):
     args = residual_inputs(b, t, width, cuda_device, dtype)
-    quant.reset_launches()
-    fused_adaln.reset_launches()
+    reset_launches()
     x_new, h = fused_adaln.adaln_residual(*args)
     want_x, want_h = fused_adaln.adaln_residual(*args, plain=True)
     torch.cuda.synchronize()
-    counts = {**quant.launches, **fused_adaln.launches}
-    assert counts == {k: int(k == "adaln_residual") for k in counts}
+    assert launch_counts() == launched(adaln_residual=1)
     x, y, gate = args[:3]
     assert torch.equal(x_new, x + gate[:, None, :] * y) and torch.equal(x_new, want_x)
     assert h.dtype == dtype and h.shape == (b, t, width)
@@ -736,7 +770,7 @@ def test_row_glue_of_a_row_does_not_depend_on_its_batch(cuda_device, kind):
 @pytest.mark.cuda
 def test_residual_variant_rejects_bad_arguments(cuda_device):
     x, y, gate, shift, scale = residual_inputs(2, 4, 64, cuda_device, torch.float32)
-    fused_adaln.reset_launches()
+    reset_launches()
     with pytest.raises(ValueError, match="share a row stride"):
         fused_adaln.adaln_residual(x, y, gate.contiguous(), shift, scale)
     with pytest.raises(ValueError, match="y"):
@@ -745,7 +779,7 @@ def test_residual_variant_rejects_bad_arguments(cuda_device):
         fused_adaln.adaln_residual(x, y.bfloat16(), gate, shift, scale)
     with pytest.raises(ValueError, match="contiguous"):
         fused_adaln.adaln_residual(x, y.transpose(0, 1).contiguous().transpose(0, 1), gate, shift, scale)
-    assert fused_adaln.launches["adaln_residual"] == 0
+    assert launch_counts() == launched()
 
 
 def two_block_xl(device):
@@ -771,30 +805,29 @@ def two_block_xl(device):
 def test_fit_forward_runs_its_row_glue_in_the_row_kernels(cuda_device):
     model, args, lengths = two_block_xl(cuda_device)
     drop = torch.zeros(8, dtype=torch.int64, device=cuda_device)
-    glue = ("adaln_modulate", "adaln_residual", "swiglu_glue")
-    fused_adaln.reset_launches()
+    reset_launches()
     with torch.inference_mode():
         got = model(*args, lengths=lengths, force_drop_ids=drop)
         torch.cuda.synchronize()
-        assert fused_adaln.launches == {"adaln_modulate": model.depth + 1, "adaln_residual": model.depth,
-                                        "swiglu_glue": model.depth, "moe_combine": 0}
-        fused_adaln.reset_launches()
+        assert launch_counts() == launched(rope_attention_fwd=model.depth, adaln_modulate=model.depth + 1,
+                                           adaln_residual=model.depth, swiglu_glue=model.depth)
+        reset_launches()
         model.plain_kernels = True
         want = model(*args, lengths=lengths, force_drop_ids=drop)
         model.plain_kernels = False
-    assert all(fused_adaln.launches[k] == 0 for k in glue)
+    assert launch_counts() == launched()
     rows = torch.arange(256, device=cuda_device)[None, :] < lengths[:, None]
     got, want = got[rows].float(), want[rows].float()
     assert torch.isfinite(got).all()
     rel = ((got - want).pow(2).mean() / want.pow(2).mean()).sqrt().item()
     assert rel <= 3e-2, rel
 
-    fused_adaln.reset_launches()
+    reset_launches()
     with torch.enable_grad():
         out = model(*args, lengths=lengths, force_drop_ids=drop)
         out.float().square().mean().backward()
     torch.cuda.synchronize()
-    assert all(fused_adaln.launches[k] == 0 for k in glue)
+    assert launch_counts() == launched(rope_attention_fwd=model.depth, rope_attention_bwd=model.depth)
 
 
 @pytest.mark.cuda
@@ -825,9 +858,9 @@ def test_dpm_sampling_through_the_kernels_matches_plain(cuda_device):
             p.normal_(0.0, 0.02, generator=gen)
     sampler = FiTSampler(model, num_sampling_steps=4, sampler="dpm", device=cuda_device)
     z = torch.randn((2, 4, 32, 32), generator=gen, device=cuda_device)
-    ra.reset_launches()
+    reset_launches()
     got = sampler.sample([1, 2], 256, 256, z=z)
-    assert ra.launches == 2 * 4
+    assert launch_counts()["rope_attention_fwd"] == 2 * 4
     model.plain_kernels = True
     want = sampler.sample([1, 2], 256, 256, z=z)
     assert torch.isfinite(got).all()
@@ -886,11 +919,9 @@ def _sd_vae_bf16(device):
 @pytest.mark.parametrize("hw", [(32, 32), (42, 24)], ids=["256x256", "336x192"])
 def test_a_served_decode_gives_a_latent_the_same_pixels_beside_any_others(cuda_device, hw):
     """The server's decode call at the SD-VAE's widths in bf16: a latent
-    decoded in a call of ``DECODE_ROWS`` rows beside other latents, at
+    decoded in a call of one row, the server's, beside other latents, at
     another position of the call, gives the same bits."""
-    from fit_tpu_torch.serve import DECODE_ROWS
-
-    c = DECODE_ROWS
+    c = 1
     vae = _sd_vae_bf16(cuda_device)
     gen = torch.Generator(device="cpu").manual_seed(hw[0])
     z = torch.randn(2 * c, 4, *hw, generator=gen).to(cuda_device)
@@ -933,13 +964,35 @@ def test_a_seeded_served_image_does_not_depend_on_its_batch(cuda_device):
     np.testing.assert_array_equal(alone[0], among[2])
 
 
+def seeded_inception_state(seed: int = 11, num_classes: int = 1008) -> dict:
+    """A full-width InceptionV3 state dict with pytorch-fid's module names
+    (``<conv>.conv.weight``, ``<conv>.bn.*``, ``fc.*``) and a
+    ``num_classes``-way fc, drawn on the host from numpy seed ``seed``:
+    He-normal convolutions and BatchNorm near identity, as
+    ``tests/test_inception.py``'s fake state dict draws them."""
+    from fit_tpu_torch.eval.inception import InceptionV3
+
+    with torch.device("meta"):
+        convs = {n: tuple(m.weight.shape) for n, m in InceptionV3().named_modules() if isinstance(m, torch.nn.Conv2d)}
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, (o, i, kh, kw) in convs.items():
+        sd[f"{name}.conv.weight"] = rng.normal(size=(o, i, kh, kw)) * np.sqrt(2.0 / (i * kh * kw))
+        sd[f"{name}.bn.weight"] = 1.0 + 0.1 * rng.normal(size=(o,))
+        sd[f"{name}.bn.bias"] = 0.05 * rng.normal(size=(o,))
+        sd[f"{name}.bn.running_mean"] = 0.05 * rng.normal(size=(o,))
+        sd[f"{name}.bn.running_var"] = rng.uniform(0.5, 1.5, size=(o,))
+    sd["fc.weight"] = rng.normal(size=(num_classes, 2048)) * 0.02
+    sd["fc.bias"] = 0.01 * rng.normal(size=(num_classes,))
+    return {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
 @pytest.fixture(scope="module")
 def seeded_inception():
-    """chip_smoke.py phase 10's seeded full-width InceptionV3, on the CPU."""
-    import chip_smoke
+    """The seeded full-width InceptionV3, on the CPU."""
     from fit_tpu_torch.eval.inception import convert_torch_inception
 
-    return convert_torch_inception(chip_smoke.seeded_inception_state())
+    return convert_torch_inception(seeded_inception_state())
 
 
 @pytest.mark.cuda
@@ -989,10 +1042,10 @@ def test_swiglu_halves_matches_plain_version(cuda_device, rows, width, dtype):
     """K6 reading the [gate | up] halves of each (rows, 2H) row in place."""
     gen = torch.Generator(device=cuda_device).manual_seed(rows + width)
     gu = torch.randn((rows, 2 * width), generator=gen, device=cuda_device).to(dtype)
-    fused_adaln.reset_launches()
+    reset_launches()
     got = fused_adaln.swiglu_halves(gu)
     torch.cuda.synchronize()
-    assert fused_adaln.launches["swiglu_glue"] == 1
+    assert launch_counts() == launched(swiglu_glue=1)
     want = fused_adaln.swiglu_glue(gu[:, :width].contiguous(), gu[:, width:].contiguous(), plain=True)
     assert got.dtype == dtype and got.shape == (rows, width)
     if dtype == torch.bfloat16:
@@ -1023,15 +1076,14 @@ def ditmoe_g_block(device, seed=0):
 @pytest.mark.cuda
 def test_sparse_moe_grouped_gemms_match_the_expert_loop(cuda_device):
     from fit_tpu_torch.models import moe
-    from fit_tpu_torch.ops import LAUNCHES
 
     block, x = ditmoe_g_block(cuda_device)
-    LAUNCHES["moe_grouped_mm"] = 0
+    reset_launches()
     with torch.inference_mode():
         got = block(x, torch.bfloat16)
-        assert LAUNCHES["moe_grouped_mm"] == 2
+        assert launch_counts() == launched(moe_grouped_mm=2, swiglu_glue=2, moe_combine=1)
         want = block(x, torch.bfloat16, plain=True)
-        assert LAUNCHES["moe_grouped_mm"] == 2
+        assert launch_counts() == launched(moe_grouped_mm=2, swiglu_glue=2, moe_combine=1)
         idx, _ = moe.route(x.reshape(-1, 1408), block.gate, 2)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape and torch.isfinite(got).all()
     assert torch.bincount(idx.reshape(-1), minlength=16).min() > 0  # every expert has rows
@@ -1077,15 +1129,23 @@ def test_the_ditmoe_forward_never_waits_for_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_ditmoe_forward_through_the_kernels_matches_plain(cuda_device):
-    """The 2-block DiT-MoE guided forward through K1, K5, K5R, K6 and the
-    grouped GEMMs against the same forward through their plain versions:
-    5e-2 relative RMS, the guided bf16 forwards' bar."""
+    """The 2-block DiT-MoE guided forward through K1, K5, K5R, K6, K7 and
+    the grouped GEMMs against the same forward through their plain versions:
+    5e-2 relative RMS, the guided bf16 forwards' bar. The kernels' forward
+    launches K1 once a block, K5 once a block and for the final layer, K5R
+    once a block, K6 twice a block (the routed rows and the shared expert),
+    K7 once and the grouped GEMMs twice; the plain one launches none."""
     model, z, t, y = ditmoe_two_blocks(cuda_device)
     with torch.inference_mode():
+        reset_launches()
         got = model.forward_with_cfg(z, t, y, 1.5)
+        assert launch_counts() == launched(masked_attention=2, adaln_modulate=3, adaln_residual=2, swiglu_glue=4,
+                                           moe_combine=2, moe_grouped_mm=4)
+        reset_launches()
         model.plain_kernels = True
         want = model.forward_with_cfg(z, t, y, 1.5)
         model.plain_kernels = False
+        assert launch_counts() == launched()
     assert _rel_rms(got, want) <= 5e-2
 
 
@@ -1106,17 +1166,15 @@ def test_masked_attention_at_head_dim_88(cuda_device, t, lengths):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("n,k,width", [(16384, 2, 1408), (33, 2, 1152), (3, 4, 8192)])
 def test_moe_combine_matches_plain_version(cuda_device, n, k, width, dtype):
-    from fit_tpu_torch.ops import LAUNCHES
-
     gen = torch.Generator(device=cuda_device).manual_seed(n + width)
     ys = torch.randn((n * k, width), generator=gen, device=cuda_device).to(dtype)
     pos = torch.randperm(n * k, generator=gen, device=cuda_device).view(n, k)
     w = torch.rand((n, k), generator=gen, device=cuda_device)
     shared = torch.randn((n, width), generator=gen, device=cuda_device).to(dtype)
-    LAUNCHES["moe_combine"] = 0
+    reset_launches()
     got = fused_adaln.moe_combine(ys, pos, w, shared)
     torch.cuda.synchronize()
-    assert LAUNCHES["moe_combine"] == 1
+    assert launch_counts() == launched(moe_combine=1)
     want = fused_adaln.moe_combine(ys, pos, w, shared, plain=True)
     assert got.dtype == dtype and got.shape == (n, width)
     if dtype == torch.bfloat16:

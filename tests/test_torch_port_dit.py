@@ -38,7 +38,7 @@ from fit_tpu_torch.models.dit import DiT, DiT_models, create_dit
 from fit_tpu_torch.models.fit import FiT
 from fit_tpu_torch.models.from_jax import torch_state_dict_from_flax
 from fit_tpu_torch.models.layers import GeluMlp
-from fit_tpu_torch.ops import attention as at
+from fit_tpu_torch.ops import launch_counts, reset_launches
 from fit_tpu_torch.sampling import create_pos_embed
 
 HID, HEADS, DEPTH, P, C, SIDE = 96, 6, 2, 2, 4, 16
@@ -123,10 +123,10 @@ def test_dit_forward_matches_flax(dit_params, backend):
     _, params = dit_params
     x, t, y = dit_inputs()
     want = np.asarray(jax_dit(backend).apply(params, *(jnp.asarray(a) for a in (x, t, y)), train=False))
-    at.reset_launches()
+    reset_launches()
     with torch.no_grad():
         got = port_dit(params)(*(torch.from_numpy(a) for a in (x, t, y)), train=False).numpy()
-    assert at.launches == 0  # CPU tensors: the plain version
+    assert launch_counts()["masked_attention"] == 0  # CPU tensors: the plain version
     assert got.shape == want.shape == (4, 2 * C, SIDE, SIDE)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 

@@ -7,7 +7,8 @@ The cross-package FID and sFID lines take ``frechet_distance``'s branch
 for a missing scipy (eigenvalues of the ~2048-d product, ~3 s each here):
 scipy's ``sqrtm`` of it takes ~15 s alone and minutes under the suite's
 load. The sqrtm branch is held against fit_tpu's in
-``test_torch_port_eval.py``, and phase 10 of ``chip_smoke.py`` runs it.
+``test_torch_port_eval.py``, and ``test_torch_port_cuda_paths.py`` runs it
+on the card.
 """
 
 from __future__ import annotations

@@ -79,3 +79,62 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
     assert any("mm" in evt.key for evt in prof.key_averages())
+
+
+# PERF.md section 6's Bound column, by table and row, in the order of the
+# timer's cases of that row: (µs, what sets it); fp32 attention on the
+# 3xTF32 basis, then the FMA rate's.
+OPS, BYTES = "operations", "bytes"
+SECTION_6 = {
+    ("bf16", "1"): [(8.0, BYTES)],
+    ("bf16", "2"): [(12.0, BYTES)],
+    ("bf16", "3"): [(12.0, BYTES)],
+    ("bf16", "4"): [(17.1, BYTES)],
+    ("bf16", "5"): [(14.7, BYTES)],
+    ("bf16", "6"): [(32.8, BYTES)],
+    ("bf16", "7"): [(88.0, OPS)],
+    ("bf16", "8"): [(111.8, OPS), (186.4, OPS)],  # the dq pass, K2 whole
+    ("bf16", "9"): [(149.1, OPS), (17.4, BYTES)],  # the dk/dv pass, the prologue
+    ("bf16", "10"): [(78.2, OPS)],
+    ("bf16", "11"): [(5.7, BYTES), (70.7, BYTES)],
+    ("bf16", "12"): [(22.5, BYTES), (281.7, BYTES), (330.5, BYTES)],
+    ("bf16", "13"): [(18.8, BYTES)],
+    ("bf16", "14"): [(4.25, BYTES)],
+    ("bf16", "15"): [(11.3, BYTES), (45.2, BYTES), (141.3, BYTES)],
+    ("bf16", "16"): [(55.2, BYTES)],
+    ("fp32", "10"): [((468.5, OPS), (1153.9, OPS))],
+    ("fp32", "1"): [((17.3, OPS), (42.6, OPS))],
+    ("fp32", "4"): [((32.8, BYTES), (76.8, OPS))],
+    ("fp32", "6"): [((77.9, OPS), (191.9, OPS)), ((48.7, BYTES), (48.7, BYTES)), ((62.3, OPS), (153.5, OPS)),
+                    ((46.8, OPS), (115.2, OPS))],  # K2 whole, then the prologue, dk/dv and dq passes
+    ("fp32", "5"): [((38.2, OPS), (94.1, OPS))],
+    ("fp32", "7"): [((527.7, OPS), (1299.6, OPS))],
+    ("fp32", "8, 9"): [((1117.1, OPS), (2751.0, OPS)), ((33.9, BYTES), (33.9, BYTES)), ((893.7, OPS), (2200.8, OPS)),
+                       ((670.3, OPS), (1650.6, OPS))],
+}
+
+
+@pytest.mark.parametrize("table,row", list(SECTION_6), ids=[f"{t}-{r.replace(', ', '-')}" for t, r in SECTION_6])
+def test_kernel_bounds_are_perf_section_6s(table, row):
+    """``cli.kernel_times``'s cases of each row of PERF.md's two kernel
+    tables, through ``utils/flops.py``'s bound on the H100's peaks, give the
+    table's Bound column: valid queries against valid keys, the bytes of
+    valid tokens."""
+    from fit_tpu_torch.cli import kernel_times
+
+    cases = [c for c in kernel_times.CASES if (c.table, c.row) == (table, row)]
+    got = [tuple(c.bounds(H100).values()) for c in cases]
+    want = [w if table == "fp32" and c.attention else (w,) for c, w in zip(cases, SECTION_6[(table, row)])]
+    assert len(cases) == len(SECTION_6[(table, row)])
+    for g, w in zip(got, want):
+        assert [by for _, by in g] == [by for _, by in w]
+        assert [us for us, _ in g] == pytest.approx([us for us, _ in w], abs=0.051)
+
+
+def test_bound_us_takes_the_larger_side():
+    assert flops.bound_us((989e12 * 1e-6, 0.0), "bfloat16", H100) == (pytest.approx(1.0), "operations")
+    assert flops.bound_us((1.0, 3.35e12 * 2e-6), "bfloat16", H100) == (pytest.approx(2.0), "bytes")
+    assert flops.bound_us((495e12 * 1e-6, 0.0), "3xtf32", H100)[0] == pytest.approx(3.0)
+    assert flops.bound_us((67e12 * 1e-6, 0.0), "float32", H100)[0] == pytest.approx(1.0)
+    with pytest.raises(ValueError, match="no peak rates"):
+        flops.bound_us((1.0, 1.0), "bfloat16", "cpu")

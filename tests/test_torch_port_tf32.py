@@ -159,7 +159,7 @@ def attention_vjp(q, k, v, g, lengths, products=None):
 
 def grad_errs(h, d, t, lengths, products) -> "list[float]":
     """max |got - ref| / max(1, max |ref|) of dq, dk and dv against the
-    float64 VJP, as chip_smoke.py holds the fp32 K2 against its plain version."""
+    float64 VJP, as the card tests hold the fp32 K2 against its plain version."""
     (q, k, v), lens = inputs(h, d, t, lengths)
     g = torch.from_numpy(np.random.default_rng(7).normal(size=q.shape).astype(np.float32))
     ref = attention_vjp(q, k, v, g, lens)

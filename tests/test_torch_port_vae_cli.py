@@ -6,10 +6,9 @@ The VAE is a random diffusers state dict in the SD layout at small widths
 (block_out_channels (8, 16, 16, 16), so an image is 8x its latent),
 written as ``sd-vae-ft-ema.bin``. A served image is its latent decoded:
 bit-identical to the port's direct decode of the latents a server without
-the VAE returns for the same seeded requests, grouped by shape and decoded
-in calls of ``serve.DECODE_ROWS`` rows as the server decodes them (the
-last call of a shape padded), and to itself served alone, also where a
-shape's requests span several calls. The CLI's PNGs read back (PIL) equal
+the VAE returns for the same seeded requests, each decoded alone as the
+server decodes it, and to itself served alone, also beside other requests
+of its shape. The CLI's PNGs read back (PIL) equal
 the images it returns, which are within one uint8 step of a direct decode
 of the latents the same seed writes without the flag (bf16, the CLI's
 default dtype, in another batch: one step covers a rounding that tips).
@@ -28,7 +27,6 @@ from PIL import Image
 from test_torch_port_cli import WAIT_S, sample, trained  # noqa: F401 — the module's fixture
 from test_torch_port_vae import fake_diffusers_sd
 
-from fit_tpu_torch import serve as serve_module
 from fit_tpu_torch.cli import demo, serve
 from fit_tpu_torch.cli.serve import make_handler
 from fit_tpu_torch.models.fit import FiT
@@ -76,26 +74,16 @@ def test_vae_server_images_are_its_latents_decoded(vae_dir):
     assert [im.shape for im in images] == [(h, w, 3) for _, h, w, _ in REQUESTS]
     assert all(im.dtype == np.uint8 for im in images)
     with torch.inference_mode():
-        # the server's decodes: each shape's rows in calls of DECODE_ROWS,
-        # the last call padded with copies of the shape's last latent
-        c = serve_module.DECODE_ROWS
-        for real in ([0, 2], [1]):
-            for start in range(0, len(real), c):
-                chunk = real[start:start + c]
-                rows = chunk + [chunk[-1]] * (c - len(chunk))
-                direct = to_uint8(vae.decode(torch.from_numpy(np.stack([latents[i] for i in rows]))))
-                for j, i in enumerate(chunk):
-                    np.testing.assert_array_equal(images[i], direct[j])
+        # the server's decodes: one request a call
+        for i, latent in enumerate(latents):
+            np.testing.assert_array_equal(images[i], to_uint8(vae.decode(torch.from_numpy(latent[None])))[0])
     alone, _ = served(model, vae, REQUESTS[1:2])  # the same seeded request without the others
     np.testing.assert_array_equal(alone[0], images[1])
 
 
-@pytest.mark.parametrize("rows", [1, 2, 3])
-def test_a_shape_spanning_several_decodes_gives_each_request_its_own_pixels(vae_dir, monkeypatch, rows):
-    """Three 64x64 requests beside a 48x80 one: at 1 and 2 rows a call the
-    64x64 group spans several decode calls (at 2 the last one padded), at 3
-    it fills one. Each image is the same bits as its request served alone."""
-    monkeypatch.setattr(serve_module, "DECODE_ROWS", rows)
+def test_a_shape_spanning_several_decodes_gives_each_request_its_own_pixels(vae_dir):
+    """Three 64x64 requests beside a 48x80 one, each decoded in its own
+    call: each image is the same bits as its request served alone."""
     model, vae = contract_fit(), small_vae(vae_dir)
     requests = [(1, 64, 64, 4), (2, 48, 80, 5), (3, 64, 64, 6), (4, 64, 64, 7)]
     images, stats = served(model, vae, requests)
