@@ -13,10 +13,16 @@ Counterpart of ``fit_tpu/serve.py``:
   denoising loop, so the worker collects requests until the batch fills or
   ``max_batch_wait_s`` passes since the first arrival, then dispatches.
   Occupancy (real slots / dispatched slots) is the utilization metric.
-* **Pipelined dispatch.** CUDA launches are asynchronous and the sampler
-  moves its inputs without waiting for the device, so the worker enqueues
-  batch N+1 while batch N computes and only then reads N back: host work
-  (noise, enqueueing, readback, futures) overlaps the card's.
+* **Answers as the card finishes.** CUDA launches are asynchronous and the
+  sampler moves its inputs without waiting for the device. The worker
+  enqueues a batch's sampling, its decodes and the copies of its answered
+  rows to pinned host memory, records a CUDA event behind them and hands
+  the batch to a completer thread; it never waits for a result and goes
+  straight back to collecting. The completer waits on each batch's event
+  in turn, converts and resolves its futures: a batch is answered when its
+  own device work completes, while the worker enqueues the next one. On a
+  CPU device the rows are computed when the worker hands them over, and
+  the completer answers at once.
 * **Per-request determinism.** A request may carry a ``seed``; its canvas
   noise is drawn on the host with numpy from that seed alone (the same
   ``z`` as ``fit_tpu``'s server draws), so under the deterministic samplers
@@ -29,10 +35,13 @@ Counterpart of ``fit_tpu/serve.py``:
   takes a slot; one that expires after dispatch completes and is counted.
 * **Spans.** The worker's time is covered, one span at a time, by the
   recorder's ``serve.collect`` (waiting for and gathering a batch),
-  ``serve.noise``, ``serve.enqueue``, ``serve.decode`` (one a decode),
-  ``serve.readback`` and ``serve.resolve``, each with the batch's id;
-  ``warmup`` leaves a ``serve.warmup`` span
-  (``fit_tpu_torch.utils.profiling``).
+  ``serve.noise``, ``serve.enqueue``, ``serve.decode`` (one a decode) and
+  ``serve.readback`` (enqueueing the copies, the event and the hand-off),
+  each with the batch's id. The completer records ``serve.await`` (blocked
+  on the batch's event) and ``serve.answer`` (conversion, futures, stats),
+  and counts ``serve.images`` and ``serve.answered_ahead``: the requests it
+  answered while the worker was launching a later batch. ``warmup`` leaves
+  a ``serve.warmup`` span (``fit_tpu_torch.utils.profiling``).
 * **Pixels.** With a ``vae`` (``fit_tpu_torch.vae.AutoencoderKL``) the
   worker decodes each batch on the card right after enqueueing its
   sampling, and futures resolve to (H, W, 3) uint8 images instead of
@@ -43,8 +52,8 @@ Counterpart of ``fit_tpu/serve.py``:
   shape, and on an H100 a bf16 SD-VAE decode of 2, 4, 8 or 32 rows gave a
   336x192 row other bits at another position of its call.
 
-A worker thread and a queue here, and a stdlib HTTP front end in
-``fit_tpu_torch.cli.serve``.
+A worker thread, a completer thread and two queues here, and a stdlib
+HTTP front end in ``fit_tpu_torch.cli.serve``.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +101,15 @@ class _Request:
 
 
 _SENTINEL = object()  # close(drain=True) marker: serve everything before it
+
+
+class _Readback(NamedTuple):
+    """A launched batch's answered rows on the host (pinned copies on a
+    card, still being written until ``done`` fires) and the event recorded
+    behind them (None on a CPU)."""
+
+    rows: List[torch.Tensor]
+    done: Optional[torch.cuda.Event]
 
 
 class SamplingServer:
@@ -151,9 +169,13 @@ class SamplingServer:
         self._slots = 0
         self._latencies: "collections.deque[float]" = collections.deque(maxlen=10_000)  # the stats window
         self._batch_counter = 0  # the worker's alone
+        self._launching = 0  # id of the batch inside _launch, 0 between batches
         self._nprng = np.random.default_rng(0)
         self.vae = vae
+        self._launched: "queue.Queue" = queue.Queue()  # (batch, _Readback) in batch order; None ends it
         self._thread = threading.Thread(target=self._worker, name="fit-serve-worker", daemon=True)
+        self._completer = threading.Thread(target=self._complete_loop, name="fit-serve-completer", daemon=True)
+        self._completer.start()
         self._thread.start()
 
     # -- request path ------------------------------------------------------
@@ -206,25 +228,22 @@ class SamplingServer:
 
     def _worker(self) -> None:
         # torch.inference_mode is thread-local: enter it in this thread
-        with torch.inference_mode():
-            self._serve_loop()
+        try:
+            with torch.inference_mode():
+                self._serve_loop()
+        finally:
+            self._launched.put(None)  # the completer answers what it holds, then exits
 
     def _serve_loop(self) -> None:
-        # one-deep pipeline: while batch N computes on the card, the worker
-        # collects and enqueues batch N+1, then reads N back. serve.collect
-        # covers the loop's time outside _launch's and _complete's spans.
-        pending = None  # (requests, device latents) enqueued but not read back
+        # the worker only collects and enqueues: _launch hands each batch to
+        # the completer, which answers it once the card is done with it.
+        # serve.collect covers the loop's time outside _launch's spans.
         draining = False  # close(drain=True) sentinel seen: exit when caught up
         t_collect = time.perf_counter()  # start of the open serve.collect span
         while not self._stop.is_set() and not draining:
             try:
                 first = self._q.get(timeout=0.05)
             except queue.Empty:
-                if pending is not None:
-                    profiling.record("serve.collect", t_collect, time.perf_counter(), id=self._batch_counter + 1)
-                    self._complete(*pending)
-                    pending = None
-                    t_collect = time.perf_counter()
                 continue
             if first is _SENTINEL:
                 break
@@ -257,14 +276,9 @@ class SamplingServer:
             for r in batch:
                 r.batch = bid
             profiling.record("serve.collect", t_collect, time.perf_counter(), id=bid)
-            launched = self._launch(batch)
-            if pending is not None:
-                self._complete(*pending)
-            pending = (batch, launched) if launched is not None else None
+            self._launch(batch)
             t_collect = time.perf_counter()
         profiling.record("serve.collect", t_collect, time.perf_counter(), id=self._batch_counter + 1)
-        if pending is not None:
-            self._complete(*pending)
         # a close without drain fails every request still queued
         while True:
             try:
@@ -291,12 +305,14 @@ class SamplingServer:
         c, s = self.model.in_channels, self.sampler.max_size
         return rng.standard_normal((c, s, s), dtype=np.float32)
 
-    def _launch(self, batch: List[_Request]):
-        """Build the padded batch and enqueue its denoising on the card.
-        Returns the device latents, or None after failing the futures."""
+    def _launch(self, batch: List[_Request]) -> None:
+        """Build the padded batch, enqueue its denoising, its decodes and
+        the copies of its answered rows on the card, and hand it to the
+        completer. Waits for no result; fails the futures on an error."""
         # pad to the static batch size with copies of the last request
         padded = batch + [batch[-1]] * (self.batch_size - len(batch))
         bid = batch[0].batch
+        self._launching = bid
         try:
             with profiling.span("serve.noise", id=bid):
                 labels = [r.label for r in padded]
@@ -305,49 +321,78 @@ class SamplingServer:
                 generator = torch.Generator(self.device).manual_seed(bid)
             with profiling.span("serve.enqueue", id=bid):
                 latents = self.sampler.sample_mixed(labels, sizes, generator=generator, z=z)
-            if self.vae is None:
-                return latents
-            # each answered request decodes alone, enqueued behind the
-            # sampling: a call of more rows gives a 336x192 row other bits at
-            # another position (cuDNN's algorithm changes with the shape), and
-            # at one row it decodes no padding (7.7 ms of device time a 256^2
-            # row on an H100, against 4.9 ms a row at 8 rows)
-            out = list(latents)
-            for i in range(len(batch)):
-                with profiling.span("serve.decode", id=bid, rows=1, images=1):
-                    out[i] = self.vae.decode(latents[i][None])[0]
-                profiling.count("vae.decoded_rows", 1, id=bid)
-            return out
+            rows = latents[: len(batch)]
+            if self.vae is not None:
+                # each answered request decodes alone, enqueued behind the
+                # sampling: a call of more rows gives a 336x192 row other bits
+                # at another position (cuDNN's algorithm changes with the
+                # shape), and at one row it decodes no padding (7.7 ms of
+                # device time a 256^2 row on an H100, against 4.9 ms a row at
+                # 8 rows)
+                rows = []
+                for lat in latents[: len(batch)]:
+                    with profiling.span("serve.decode", id=bid, rows=1, images=1):
+                        rows.append(self.vae.decode(lat[None])[0])
+                    profiling.count("vae.decoded_rows", 1, id=bid)
+            with profiling.span("serve.readback", id=bid):
+                if self.device.type == "cuda":
+                    # fp32 copies into pinned memory behind the batch's last
+                    # kernel, and an event behind them that the completer
+                    # waits on with the GIL released
+                    host = [torch.empty(r.shape, dtype=torch.float32, pin_memory=True) for r in rows]
+                    for h, r in zip(host, rows):
+                        h.copy_(r.float(), non_blocking=True)
+                    done = torch.cuda.Event(blocking=True)
+                    done.record(torch.cuda.current_stream(self.device))
+                else:  # computed already: nothing to copy or wait on
+                    host, done = [r.float() for r in rows], None
+                self._launched.put((batch, _Readback(host, done)))
         except Exception as exc:  # noqa: BLE001 — the batch's futures carry it
             for req in batch:
                 if not req.future.done():
                     req.future.set_exception(exc)
-            return None
+        finally:
+            self._launching = 0
 
-    def _complete(self, batch: List[_Request], latents) -> None:
-        """Read a launched batch back to the host and resolve its futures."""
+    def _complete_loop(self) -> None:
+        """The completer thread: answer each launched batch in order until
+        the worker's None."""
+        while True:
+            launched = self._launched.get()
+            if launched is None:
+                return
+            self._complete(*launched)
+
+    def _complete(self, batch: List[_Request], readback: _Readback) -> None:
+        """Wait until a launched batch's rows are on the host, convert them
+        and resolve its futures. An error fails this batch's futures only."""
         n = len(batch)
         bid = batch[0].batch
         try:
-            with profiling.span("serve.readback", id=bid):
+            with profiling.span("serve.await", id=bid):
+                if readback.done is not None:
+                    readback.done.synchronize()
+            with profiling.span("serve.answer", id=bid):
                 if self.vae is None:
-                    host = [np.array(lat.cpu(), dtype=np.float32) for lat in latents[:n]]
+                    answers = [row.numpy().copy() for row in readback.rows]
                 else:  # (3, H, W) in [-1, 1] -> (H, W, 3) uint8
-                    host = [to_uint8(img) for img in latents[:n]]
-            with profiling.span("serve.resolve", id=bid):
+                    answers = [to_uint8(row) for row in readback.rows]
                 now = time.monotonic()
+                # answered while the worker still enqueues a later batch
+                ahead = n if self._launching > bid else 0
                 # a dispatched request always completes (its slot cannot be taken
                 # back mid-denoise); count those that resolve past their deadline
                 late = sum(1 for r in batch if r.deadline is not None and now > r.deadline)
-                for req, lat in zip(batch, host):
-                    req.future.set_result(lat)
-                profiling.count("serve.images", n, id=bid)
-                with self._lock:
+                with self._lock:  # before the futures: an answered request is in stats()
                     self._served += n
                     self._batches += 1
                     self._slots += self.batch_size
                     self._expired_after_dispatch += late
                     self._latencies.extend(now - r.t_submit for r in batch)
+                profiling.count("serve.images", n, id=bid)
+                profiling.count("serve.answered_ahead", ahead, id=bid)
+                for req, answer in zip(batch, answers):
+                    req.future.set_result(answer)
         except Exception as exc:  # noqa: BLE001 — the batch's futures carry it
             for req in batch:
                 if not req.future.done():
@@ -394,7 +439,8 @@ class SamplingServer:
         """Stop the server. ``drain=True`` stops admission at once but
         serves every request already accepted before the worker exits;
         ``drain=False`` fails the queued requests (``RuntimeError("server
-        closed")``) and only completes the batch already on the card."""
+        closed")``) and only completes the batches already on the card. Both
+        threads have exited when it returns."""
         self._closing.set()
         if drain and self._thread.is_alive():
             # FIFO marker after every accepted request; put() may wait while
@@ -404,6 +450,7 @@ class SamplingServer:
             self._stop.set()
         self._thread.join(timeout=120)
         self._stop.set()
+        self._completer.join(timeout=120)
 
     def __enter__(self):
         return self

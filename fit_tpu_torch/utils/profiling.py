@@ -23,17 +23,22 @@ Spans the program records (each with the id it shares), and what reads
 them:
 
 * ``serve.collect``, ``serve.noise``, ``serve.enqueue``, ``serve.decode``
-  (``rows``, ``images``), ``serve.readback``, ``serve.resolve``: the
-  ``SamplingServer`` worker's loop, batch id; together they cover the
-  worker's time, one at a time (the benchmark's ``idle_collect.serve``,
-  ``idle_host.serve``, ``decode_share.serve``).
+  (``rows``, ``images``), ``serve.readback``: the ``SamplingServer``
+  worker's loop, batch id; together they cover the worker's time, one at a
+  time (the benchmark's ``idle_collect.serve``, ``idle_host.serve``,
+  ``decode_share.serve``).
+* ``serve.await``, ``serve.answer``: its completer thread, blocked on a
+  batch's event and answering it, batch id (read by no metric).
 * ``serve.warmup``: ``SamplingServer.warmup``, whose end opens the
   window ``decode_useful.serve`` counts over.
 * ``train.loader_wait``: the ``Trainer`` loop's thread blocked on its
   loader (its ``loader_wait_share`` log field; ``loader_wait_share.train``).
 
 Counts: ``serve.images`` (requests answered) and ``vae.decoded_rows``
-(rows decoded, padding included), read by ``decode_useful.serve``.
+(rows decoded, padding included), read by ``decode_useful.serve``;
+``serve.answered_ahead`` (requests of a batch answered while the worker
+was launching a later one, else 0), read with ``serve.images`` by
+``answered_ahead.serve``.
 """
 
 from __future__ import annotations

@@ -23,7 +23,8 @@ Bars, as ``test_torch_port_cuda.py``'s:
 - ``cli.sample``'s latents bit for bit ``FiTSampler``'s on the same
   weights, labels and generator, its PNGs within one uint8 step of a direct
   decode of its latents; a served seed repeated in another batch bit for bit
-  under DPM-Solver++ (1e-3 under DDIM).
+  under DPM-Solver++ (1e-3 under DDIM); a served image byte-equal to a
+  decode of the latent the server decoded for it.
 """
 
 import io
@@ -266,6 +267,42 @@ def test_int8_serving_over_http_on_the_card(cuda_device):
     assert check_burst(responses, stats, health) <= 1e-3
     forwards = STEPS * stats["batches"]
     assert counts == launched(rope_attention_fwd=2 * forwards, adaln_quant=4 * forwards, silu_mul_quant=2 * forwards)
+
+
+@pytest.mark.cuda
+def test_served_images_are_the_decodes_of_their_own_latents(cuda_device):
+    """``SamplingServer`` with a bf16 VAE and DPM-Solver++, 14 requests of
+    four sizes in batches of up to 4 that follow each other on the card:
+    each request's uint8 image is byte-equal to ``to_uint8(vae.decode(z))``
+    of the latent ``z`` the server decoded for it, decoded again after the
+    server closed. The completer reads a batch's pinned copies only once
+    the event behind them has fired."""
+    from fit_tpu_torch.serve import SamplingServer
+    from fit_tpu_torch.vae import AutoencoderKL
+    from fit_tpu_torch.vae.model import to_uint8
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(10)
+        vae = AutoencoderKL((8, 16, 16, 16), dtype=torch.bfloat16, device=cuda_device)
+    decode, latents = vae.decode, []
+
+    def keeping(z):  # the worker's decodes, in request order
+        latents.append(z.clone())
+        return decode(z)
+
+    vae.decode = keeping
+    sizes = [MIXED_SIZES[i % len(MIXED_SIZES)] for i in range(14)]
+    with SamplingServer(xl_blocks(), batch_size=4, max_batch_wait_s=0.0, num_sampling_steps=STEPS, cfg_scale=1.5,
+                        sampler="dpm", device=cuda_device, vae=vae) as srv:
+        futs = [srv.submit(i, h, w, seed=100 + i) for i, (h, w) in enumerate(sizes)]
+        images = [f.result(timeout=PROCESS_S) for f in futs]
+        stats = srv.stats()
+    vae.decode = decode
+    assert stats["served"] == len(latents) == 14 and stats["batches"] >= 4
+    with torch.inference_mode():
+        for (h, w), z, image in zip(sizes, latents, images):
+            assert image.shape == (h, w, 3) and image.dtype == np.uint8
+            np.testing.assert_array_equal(image, to_uint8(decode(z)[0]))
 
 
 # -- training ---------------------------------------------------------------

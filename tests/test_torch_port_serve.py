@@ -17,8 +17,10 @@
 3. The behavioural contract of tests/test_serve.py, on the port: batching,
    padding, mixed sizes, determinism across batch compositions, validation,
    error propagation, close and drain, the bounded queue, deadlines, and the
-   HTTP front end (200 .npy, /stats, /healthz, 400, 429, 504, 500). Every
-   wait has a timeout.
+   HTTP front end (200 .npy, /stats, /healthz, 400, 429, 504, 500); and the
+   port's completer: a batch answered before the next batch's launch
+   returns, a read-back failure failing only its batch, both threads
+   stopped by close. Every wait has a timeout.
 """
 
 import io
@@ -291,6 +293,90 @@ def test_close_drain_serves_all_accepted(model):
     with pytest.raises(RuntimeError):
         srv.submit(0, 128, 128)
     assert srv.stats()["served"] == 7
+
+
+def test_a_batch_is_answered_before_the_next_batchs_launch_returns(model):
+    """Batch 2's sampling waits until batch 1's futures resolve: the
+    server answers a batch without waiting for the next one's launch. In
+    the order that read batch 1 back after launching batch 2, the wait
+    times out instead."""
+    srv = make_server(model, batch_size=2, max_batch_wait_s=1.0)
+    answered = threading.Event()
+    calls, waited = [], []
+    orig = srv.sampler.sample_mixed
+
+    def gated(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:  # batch 2's launch
+            waited.append(answered.wait(10))
+        return orig(*a, **k)
+
+    srv.sampler.sample_mixed = gated
+    try:
+        futs = [srv.submit(i % NUM_CLASSES, 128, 128, seed=i) for i in range(4)]  # two full batches
+        futs[0].add_done_callback(lambda _f: answered.set())
+        for f in futs:
+            assert f.result(timeout=WAIT) is not None
+    finally:
+        srv.close()
+    assert waited == [True]
+    assert srv.stats()["batches"] == 2
+
+
+def test_a_read_back_failure_fails_only_its_own_batch(model, monkeypatch):
+    """The completer's conversion of batch 1 raises: batch 1's futures
+    carry the error, batch 2 is answered, and the server goes on."""
+    import fit_tpu_torch.serve as serve_mod
+    from fit_tpu_torch.vae import AutoencoderKL
+
+    torch.manual_seed(0)
+    vae = AutoencoderKL(block_out_channels=(32, 32), device="cpu")
+    calls = []
+    orig = serve_mod.to_uint8
+
+    def failing_first(img):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("read-back failed")
+        return orig(img)
+
+    monkeypatch.setattr(serve_mod, "to_uint8", failing_first)
+    srv = make_server(model, batch_size=2, max_batch_wait_s=0.0, vae=vae)
+    gate = stall(srv)
+    try:
+        first = srv.submit(0, 128, 128, seed=0)
+        time.sleep(0.1)  # the worker takes it alone and stalls on it
+        second = [srv.submit(i, 128, 128, seed=i) for i in (1, 2)]
+        gate.set()
+        with pytest.raises(RuntimeError, match="read-back failed"):
+            first.result(timeout=WAIT)
+        images = [f.result(timeout=WAIT) for f in second]
+        assert all(im.dtype == np.uint8 and im.ndim == 3 for im in images)
+        assert srv.submit(3, 128, 128, seed=3).result(timeout=WAIT) is not None
+    finally:
+        gate.set()
+        srv.close()
+    s = srv.stats()
+    assert s["served"] == 3 and s["batches"] == 2
+
+
+@pytest.mark.parametrize("drain", [True, False], ids=["drain", "no-drain"])
+def test_close_stops_both_threads(model, drain):
+    """``close`` returns with the worker and the completer stopped; with
+    drain every accepted request was answered, without it every accepted
+    request is resolved, answered or failed."""
+    srv = make_server(model, batch_size=2, max_batch_wait_s=0.0)
+    gate = stall(srv)
+    futs = [srv.submit(i % NUM_CLASSES, 128, 128, seed=i) for i in range(5)]
+    gate.set()
+    srv.close(drain=drain)
+    assert not srv._thread.is_alive() and not srv._completer.is_alive()
+    assert all(f.done() for f in futs)
+    if drain:
+        assert all(f.exception() is None for f in futs)
+        assert srv.stats()["served"] == 5
+    else:
+        assert srv.stats()["served"] == sum(f.exception() is None for f in futs)
 
 
 def test_overload_bounded_queue_rejects_and_recovers(model):

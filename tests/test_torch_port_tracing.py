@@ -6,15 +6,17 @@ them.
    buffer's bound, ``recorded``'s clipping, ``enable(False)``; the kernel
    wrappers' launch counters in the ops package's one registry.
 2. A tiny CPU ``SamplingServer`` with a VAE: the worker's spans cover its
-   loop one at a time, the counts equal ``stats()``, and ``stats()`` does
-   not depend on the recorder.
+   loop one at a time, the completer's answer each batch once in order,
+   the counts equal ``stats()`` (``serve.answered_ahead`` counts a batch
+   answered while the worker launches the next), and ``stats()`` does not
+   depend on the recorder.
 3. The Trainer loop's ``train.loader_wait`` spans and its
    ``loader_wait_share`` log field.
 4. The shared clock: a span around a torch op, mapped onto a CPU
    ``torch.profiler`` trace through the slice's ``t_open`` as
    ``bench_torch.trace.profiled_slice`` stamps it, contains the op's
    ``cpu_op`` event, on the same thread id.
-5. The five per-layer readers under ``bench_torch/metrics/`` on a
+5. The six per-layer readers under ``bench_torch/metrics/`` on a
    hand-built trace and recorder: their exact values, and None when the
    program records nothing.
 """
@@ -39,7 +41,8 @@ from fit_tpu_torch.utils import profiling
 from fit_tpu_torch.vae import AutoencoderKL
 
 WAIT = 60  # seconds any future may take before the test fails
-WORKER_SPANS = ("serve.collect", "serve.noise", "serve.enqueue", "serve.decode", "serve.readback", "serve.resolve")
+WORKER_SPANS = ("serve.collect", "serve.noise", "serve.enqueue", "serve.decode", "serve.readback")
+COMPLETER_SPANS = ("serve.await", "serve.answer")
 
 
 # -- 1. the recorder ---------------------------------------------------------
@@ -158,16 +161,25 @@ def tiny_fit():
     return model
 
 
+def tiny_server(**kw):
+    torch.manual_seed(0)
+    vae = AutoencoderKL(block_out_channels=(32, 32), device="cpu")
+    return SamplingServer(tiny_fit(), num_sampling_steps=2, num_classes=10, max_size=8, max_length=16, device="cpu",
+                          vae=vae, **kw)
+
+
+def entries_of(thread, t0):
+    return [e for e in profiling.recorded(t0) if e.tid == thread.native_id]
+
+
 @pytest.fixture(scope="module")
 def served():
     """Two waves of requests through a server with a VAE (the second
-    after the first is answered, so a read-back splits a collect span),
-    then a close; the worker's entries, its stats and the requests."""
-    torch.manual_seed(0)
-    vae = AutoencoderKL(block_out_channels=(32, 32), device="cpu")
+    after the first is answered, so the worker idles in a collect span
+    between them), then a close; the worker's entries, the completer's,
+    the stats and the requests."""
     t0 = time.perf_counter()
-    srv = SamplingServer(tiny_fit(), batch_size=4, max_batch_wait_s=0.05, num_sampling_steps=2, num_classes=10,
-                         max_size=8, max_length=16, device="cpu", vae=vae)
+    srv = tiny_server(batch_size=4, max_batch_wait_s=0.05)
     try:
         first = [srv.submit(i, 64, 64, seed=i) for i in range(3)]
         for f in first:
@@ -179,14 +191,12 @@ def served():
             f.result(timeout=WAIT)
     finally:
         srv.close()
-    assert not srv._thread.is_alive()
-    tid = srv._thread.native_id
-    entries = [e for e in profiling.recorded(t0) if e.tid == tid]
-    return entries, srv.stats(), 8
+    assert not srv._thread.is_alive() and not srv._completer.is_alive()
+    return entries_of(srv._thread, t0), entries_of(srv._completer, t0), srv.stats(), 8
 
 
 def test_the_workers_spans_cover_its_loop_one_at_a_time(served):
-    entries, _, _ = served
+    entries, _, _, _ = served
     spans = sorted((e for e in entries if e.kind == profiling.SPAN and e.name in WORKER_SPANS), key=lambda e: e.t0)
     assert {e.name for e in spans} == set(WORKER_SPANS)
     for a, b in zip(spans, spans[1:]):
@@ -194,28 +204,80 @@ def test_the_workers_spans_cover_its_loop_one_at_a_time(served):
         assert b.t0 - a.t1 < 0.025, (a, b)  # no hole: a few lines of the loop between spans
     assert spans[0].name == spans[-1].name == "serve.collect"
     # a batch's spans run in the loop's order, and every batch was decoded
-    # and read back once
+    # and its read-back enqueued once; the answer is the completer's
     batches = sorted({e.id for e in spans if e.name == "serve.enqueue"})
     assert len(batches) >= 2
     for bid in batches:
         names = [e.name for e in spans if e.id == bid and e.name != "serve.collect"]
-        assert names[:2] == ["serve.noise", "serve.enqueue"] and names[-2:] == ["serve.readback", "serve.resolve"]
-        assert set(names[2:-2]) == {"serve.decode"}
+        assert names[:2] == ["serve.noise", "serve.enqueue"] and names[-1] == "serve.readback"
+        assert set(names[2:-1]) == {"serve.decode"}
+    assert not any(e.name in ("serve.resolve", *COMPLETER_SPANS) for e in entries)
+
+
+def test_the_completers_spans_answer_each_batch_once_in_order(served):
+    worker, completer, stats, _ = served
+    spans = sorted((e for e in completer if e.kind == profiling.SPAN), key=lambda e: e.t0)
+    assert {e.name for e in spans} == set(COMPLETER_SPANS)
+    assert [e.name for e in spans] == list(COMPLETER_SPANS) * stats["batches"]
+    for a, b in zip(spans, spans[1:]):
+        assert a.t1 <= b.t0, (a, b)
+    launched = sorted(e.id for e in worker if e.name == "serve.readback")
+    assert [e.id for e in spans[::2]] == [e.id for e in spans[1::2]] == launched
+    # a batch is answered after the worker handed it over
+    handed = {e.id: e.t1 for e in worker if e.name == "serve.readback"}
+    assert all(e.t1 >= handed[e.id] for e in spans[1::2])
 
 
 def test_the_counts_equal_the_servers_stats(served):
-    entries, stats, n = served
+    worker, completer, stats, n = served
     counts = {}
-    for e in entries:
+    for e in worker + completer:
         if e.kind == profiling.COUNT:
             counts[e.name] = counts.get(e.name, 0) + e.attrs["n"]
-    decodes = [e for e in entries if e.name == "serve.decode"]
+    decodes = [e for e in worker if e.name == "serve.decode"]
     assert counts["serve.images"] == stats["served"] == n
-    assert set(counts) == {"serve.images", "vae.decoded_rows"}
+    assert set(counts) == {"serve.images", "vae.decoded_rows", "serve.answered_ahead"}
+    assert 0 <= counts["serve.answered_ahead"] <= n
     # one span a decode call, each of one row
     assert {e.attrs["rows"] for e in decodes} == {1}
     assert counts["vae.decoded_rows"] == sum(e.attrs["rows"] for e in decodes) == len(decodes)
     assert sum(e.attrs["images"] for e in decodes) == n
+
+
+def test_answered_ahead_counts_a_batch_answered_while_the_next_launches(monkeypatch):
+    """Batch 1's answer waits until batch 2's sampling has begun, and
+    batch 2's sampling until batch 1 is answered: batch 1's two requests
+    count as answered ahead, batch 2's none, and the counts sum to
+    ``stats()``."""
+    import fit_tpu_torch.serve as serve_mod
+
+    launching, answered = threading.Event(), threading.Event()
+    convert = serve_mod.to_uint8
+    monkeypatch.setattr(serve_mod, "to_uint8", lambda img: (launching.wait(WAIT), convert(img))[1])
+    t0 = time.perf_counter()
+    srv = tiny_server(batch_size=2, max_batch_wait_s=1.0)
+    sample, calls = srv.sampler.sample_mixed, []
+
+    def gated(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:  # batch 2
+            launching.set()
+            answered.wait(WAIT)
+        return sample(*a, **k)
+
+    srv.sampler.sample_mixed = gated
+    try:
+        futs = [srv.submit(i, 64, 64, seed=i) for i in range(4)]  # two full batches
+        futs[0].add_done_callback(lambda _f: answered.set())
+        for f in futs:
+            f.result(timeout=WAIT)
+    finally:
+        srv.close()
+    stats = srv.stats()
+    ahead = [(e.id, e.attrs["n"]) for e in entries_of(srv._completer, t0) if e.name == "serve.answered_ahead"]
+    images = sum(e.attrs["n"] for e in entries_of(srv._completer, t0) if e.name == "serve.images")
+    assert ahead == [(1, 2), (2, 0)]
+    assert len(ahead) == stats["batches"] == 2 and images == stats["served"] == 4
 
 
 def test_stats_leave_out_the_warmup_and_other_servers():
@@ -368,23 +430,27 @@ def hand_trace():
     return Trace(ev, T_OPEN)
 
 
-def hand_recorder():
+def hand_recorder(ahead=True):
     """The server's warm-up and the counts of the window after it, the
     worker's spans in the slice (collect before the slice opens and after
-    it closes) and its counts, and the Trainer's waits before the slice."""
+    it closes) and its counts, and the Trainer's waits before the slice.
+    Without ``ahead``, the completer counts no ``serve.answered_ahead``."""
     rec = profiling.Recorder()
     rec.record("serve.warmup", at(-9500), at(-7000))
-    for name, n, us in [("vae.decoded_rows", 4, -8000), ("serve.images", 4, -7500),  # the warm-up's
-                        ("vae.decoded_rows", 4, -6000), ("vae.decoded_rows", 4, -5000), ("vae.decoded_rows", 4, -4000),
-                        ("vae.decoded_rows", 4, -3000), ("serve.images", 5, -2500)]:
-        rec._entries.append(profiling.Entry(name, profiling.COUNT, 9, at(us), at(us), 1, {"n": n}))
+    counts = [("vae.decoded_rows", 4, -8000), ("serve.images", 4, -7500), ("serve.answered_ahead", 0, -7500),
+              ("vae.decoded_rows", 4, -6000), ("vae.decoded_rows", 4, -5000), ("vae.decoded_rows", 4, -4000),
+              ("vae.decoded_rows", 4, -3000), ("serve.images", 3, -2600), ("serve.answered_ahead", 3, -2600),
+              ("serve.images", 2, -2500), ("serve.answered_ahead", 0, -2500)]
+    for name, n, us in counts:
+        if ahead or name != "serve.answered_ahead":
+            rec._entries.append(profiling.Entry(name, profiling.COUNT, 9, at(us), at(us), 1, {"n": n}))
     worker = [("serve.collect", 0, 2400), ("serve.enqueue", 2400, 2600), ("serve.collect", 2600, 5500),
               ("serve.decode", 5500, 6500), ("serve.readback", 6500, 10200), ("serve.resolve", 10200, 10400),
               ("serve.collect", 10400, 12000)]
     for name, s, e in worker:
         rec.record(name, at(s), at(e), id=1)
     for name, n, us in [("vae.decoded_rows", 4, 5600), ("vae.decoded_rows", 4, 6400), ("serve.images", 3, 10300),
-                        ("vae.decoded_rows", 4, 12500)]:  # the last one after the slice
+                        ("serve.answered_ahead", 3, 10300), ("vae.decoded_rows", 4, 12500)]:  # the last after the slice
         rec._entries.append(profiling.Entry(name, profiling.COUNT, 9, at(us), at(us), 1, {"n": n}))
     for s, e in [(-10000, -9000), (-5000, -3500), (-2000, -1500), (-500, 1000)]:  # µs from the slice's open
         rec.record("train.loader_wait", T_OPEN + s * 1e-6, T_OPEN + e * 1e-6)
@@ -395,14 +461,16 @@ def hand_recorder():
 # 5000–5500 and 10400–11000 of it (2900 µs); the worker's other spans 2400–2600,
 # 5500–7000 and 10000–10400 (2100 µs). serve.decode (5500–6500) launched k_b
 # (3000 of 5000 busy µs). The window between the warm-up and the slice decoded
-# 16 rows for 5 images (the slice's 8 rows for 3 are not counted). The Trainer
-# waited 500 + 500 + 500 µs of the 4000 before the slice.
+# 16 rows for 5 images, 3 of them answered ahead (the warm-up's and the slice's
+# are not counted). The Trainer waited 500 + 500 + 500 µs of the 4000 before
+# the slice.
 READINGS = {
     "idle_collect.serve": 29.0,
     "idle_host.serve": 21.0,
     "decode_share.serve": 60.0,
     "decode_useful.serve": 31.25,
     "loader_wait_share.train": 37.5,
+    "answered_ahead.serve": 60.0,
 }
 
 
@@ -429,4 +497,13 @@ def test_a_reader_is_silent_without_the_programs_entries(name, program, monkeypa
         monkeypatch.delattr(profiling, "recorded")
     assert read_metric(name, {"trace": hand_trace(), "window_s": 0.004}) is None
     assert read_metric(name, {}) is None
+
+
+def test_answered_ahead_is_silent_where_the_program_counts_none(monkeypatch):
+    """A server that answers each batch after the next one's launch counts
+    its images and no ``serve.answered_ahead``: the metric says nothing."""
+    monkeypatch.setattr(profiling, "recorded", hand_recorder(ahead=False).recorded)
+    obs = {"trace": hand_trace(), "window_s": 0.004}
+    assert read_metric("decode_useful.serve", obs) == pytest.approx(31.25)
+    assert read_metric("answered_ahead.serve", obs) is None
 
