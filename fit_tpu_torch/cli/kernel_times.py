@@ -65,7 +65,7 @@ class Case:
 
     @property
     def attention(self) -> bool:
-        return not self.kernel.startswith(("adaln", "silu", "swiglu", "moe"))
+        return not self.kernel.startswith(("adaln", "silu", "swiglu", "moe", "qk_norm", "gelu"))
 
     def work(self) -> Tuple[float, float]:
         """(FLOPs, bytes) of one call."""
@@ -124,6 +124,10 @@ CASES = _cases("bf16", [
     ("15", "adaln_residual", (16384, 1152, 64)),
     ("15", "adaln_residual", (51200, 1152, 200)),
     ("16", "moe_combine", (16384, 1408, 1)),
+    ("17", "qk_norm", (16384, 3 * 3072, 4)),
+    ("17", "qk_norm", (17408, 2 * 3072, 4)),
+    ("18", "gelu_glue", (16384, 12288, 4)),
+    ("18", "gelu_glue", (17408, 12288, 4)),
 ]) + _cases("fp32", [
     ("10", "masked_attention", _K1_DIT),
     ("1", "qkv_rope_attention", _K1_XL),
@@ -223,6 +227,21 @@ def _row_calls(case: Case, gen: torch.Generator) -> Dict[str, Optional[Callable]
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    if case.kernel.startswith(("qk_norm", "gelu")):  # FLUX.1-schnell's rows: D 3072, 24 heads of 128
+        d, t = 3072, rows // batch
+        single = t == 256 + 4096  # a single block's [txt | img] rows, in linear1's output; else a double's image
+        scales = (1 + 0.1 * randn(128).float()).to(dtype), (1 + 0.1 * randn(128).float()).to(dtype)
+        if case.kernel == "qk_norm" and single:  # q and k in place in linear1's rows
+            kw, args, fn = {}, (randn(batch, t, 7 * d), *scales, 24), fused_adaln.qk_norm
+        elif case.kernel == "qk_norm":  # the image stream into the joint buffer
+            kw = dict(out=torch.empty((batch, t, width), device="cuda", dtype=dtype))
+            args, fn = (randn(batch, t, width), *scales, 24), fused_adaln.qk_norm
+        elif not single:  # the image stream's MLP
+            kw, args, fn = {}, (randn(batch, t, width),), fused_adaln.gelu_glue
+        else:  # linear1's m columns into linear2's input after the attention's
+            cat = torch.empty((batch, t, d + width), device="cuda", dtype=dtype)
+            kw, args, fn = dict(out=cat[..., d:]), (randn(batch, t, 3 * d + width)[..., 3 * d :],), fused_adaln.gelu_glue
+        return {"kernel": partial(fn, *args, **kw), "plain": partial(fn, *args, plain=True, **kw), "sdpa": None}
     if case.kernel == "moe_combine":
         k = 2
         args = (randn(rows * k, width), torch.randperm(rows * k, generator=gen, device="cuda").view(rows, k),

@@ -9,11 +9,15 @@ the emitted tables are byte-equal to ``fit_tpu``'s.
 RoPE table layout, for ``dim`` = head_dim: per token
 ``[w-axis: cos f0, sin f0, ..., h-axis: cos f0, sin f0, ...]``; the first
 half of the head dim rotates by width positions, the second by height.
+
+:func:`rope_ids_nd` is FLUX's N-axis RoPE (``EmbedND``): each token carries
+one id per axis and each axis rotates its own run of pairs; it works on
+torch tensors on their device, since the ids are the model's input.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -24,6 +28,7 @@ __all__ = [
     "ntk_scaled_theta",
     "rope_freqs_1d_from_positions",
     "rope_freqs_2d",
+    "rope_ids_nd",
     # the reference implementation's names for the same tables
     "get_1d_sincos_pos_embed",
     "get_2d_sincos_pos_embed",
@@ -106,6 +111,26 @@ def rope_freqs_2d(
     pairs_h = rope_freqs_1d_from_positions(dim // 2, pos_h, theta, max_length)
     pairs = np.concatenate([pairs_w, pairs_h], axis=1)
     return pairs.reshape(pairs.shape[0], -1)
+
+
+def rope_ids_nd(ids, axes_dim: Sequence[int], theta: float = 10000.0):
+    """FLUX's ``EmbedND`` as an interleaved (B, T, d) fp32 table for
+    ``fit_tpu_torch.ops.rope_attention.split_rope_tables`` (d = sum of
+    ``axes_dim``): from (B, T, n) position ids (a torch tensor), axis ``i``
+    fills ``axes_dim[i] / 2`` pairs, in axis order, pair ``j`` of it
+    ``(cos, sin)`` of ``ids[..., i] * theta**(-2j / axes_dim[i])``, computed
+    in float64 and cast once, as FLUX's ``rope`` does. An all-zero id (FLUX's
+    text tokens) gives the identity rotation."""
+    import torch
+
+    if ids.shape[-1] != len(axes_dim) or any(a % 2 for a in axes_dim):
+        raise ValueError(f"ids (..., {ids.shape[-1]}) need one even axes_dim entry an axis, got {tuple(axes_dim)}")
+    parts = []
+    for i, dim in enumerate(axes_dim):
+        omega = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float64, device=ids.device) / dim)
+        angles = ids[..., i].to(torch.float64)[..., None] * omega
+        parts.append(torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1))
+    return torch.cat(parts, dim=-2).flatten(-2).float()
 
 
 get_1d_sincos_pos_embed = sincos_1d

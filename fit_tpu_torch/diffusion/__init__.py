@@ -1,4 +1,4 @@
-"""Gaussian diffusion and its sampling loops."""
+"""Gaussian diffusion and its sampling loops, and FLUX's rectified-flow loop."""
 
 from fit_tpu_torch._exports import lazy_exports
 
@@ -7,6 +7,10 @@ __all__, __getattr__, __dir__ = lazy_exports(
     {
         "..core.schedules": (
             "space_timesteps",
+        ),
+        ".flow": (
+            "denoise",
+            "get_schedule",
         ),
         ".dpm_solver": (
             "dpm_solver_pp_2m",

@@ -2,7 +2,8 @@
 
 ``fit_tpu.models`` also exports ``MoeSwiGLU`` (a top-1 Switch FFN), which
 the port has not ported; its mixture of experts is DiT-MoE's
-``SparseMoeBlock``.
+``SparseMoeBlock``. ``Flux`` is FLUX.1's two-stream rectified-flow
+transformer, which ``fit_tpu`` does not have.
 """
 
 from fit_tpu_torch._exports import lazy_exports
@@ -21,6 +22,14 @@ __all__, __getattr__, __dir__ = lazy_exports(
             "create_dit",
         ),
         ".moe": ("SparseMoeBlock",),
+        ".flux": (
+            "DoubleStreamBlock",
+            "Flux",
+            "LastLayer",
+            "MLPEmbedder",
+            "SingleStreamBlock",
+            "create_flux",
+        ),
         ".fit": (
             "FiT",
             "FiT_models",

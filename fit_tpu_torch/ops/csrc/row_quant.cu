@@ -16,6 +16,14 @@
 // no DiT-MoE). K7 reads (k + 1) rows and writes one; at DiT-MoE-G/2's batch
 // 32 with CFG (16,384 rows of 1408, k = 2) that is ~185 MB, ~55 us at
 // 3.35 TB/s, where the eager gather, casts, products and sums move ~1.9 GB.
+// Two more serve FLUX's blocks (no TPU counterpart: fit_tpu has no FLUX):
+// K8, qk_rms_rows<T, COPY_V>, the QK-RMSNorm of each head of q and of k in
+// a [q | k | v] projection row, and K6G, gelu_rows<T>, the tanh GELU of a
+// row; both read their source and write their destination by row stride,
+// so a double block's K8 writes its stream's rows into the joint [txt | img]
+// buffer at a row offset, a single block's K8 norms linear1's q and k in
+// place, and its K6G writes gelu(m) into the columns of linear2's input
+// beside the attention's output.
 //
 // adaLN, for one token row x of width D and its batch row b:
 //   mean = sum(x) / D,  var = sum((x - mean)^2) / D       (fp32, two passes)
@@ -614,6 +622,85 @@ moe_combine_rows(const T* __restrict__ ys, const long long* __restrict__ pos, co
   }
 }
 
+// K8, qk_rms_rows: for one token row of a [q | k | v] projection (each C =
+// heads * head_dim wide), each head of q and of k becomes
+//   y = x * rsqrt(sum(x^2) / head_dim + eps) * scale      (fp32, one cast to T)
+// with q's or k's learned scale (head_dim,) in T. FLUX's RMSNorm casts
+// x * rsqrt(...) to T before the scale's multiply; one cast after it is a
+// departure inside T's rounding. One block of 128 threads per row, a thread
+// per 8-element chunk: the head_dim / 8 threads of a head (a power of two up
+// to 32, so a head lies in one warp) sum their squares by an xor tree. With
+// COPY_V, v is copied to the destination beside the normed q and k;
+// without, the destination is the source (in place) and v is not touched.
+// Source row (b, t) is src + b * src_bs + t * src_ld, destination row dst +
+// b * dst_bs + t * dst_ld (a row offset is the caller's base pointer). Every thread of the block takes
+// the same number of turns, so every lane of a warp reaches each shuffle.
+template <typename T, bool COPY_V>
+__global__ void __launch_bounds__(kThreads)
+qk_rms_rows(const T* src, long long src_bs, long long src_ld, T* dst, long long dst_bs, long long dst_ld,
+            const T* __restrict__ q_scale, const T* __restrict__ k_scale, int seq, int heads,
+            int head_dim, float eps) {
+  const long long row = blockIdx.x;
+  const long long b = row / seq;
+  const long long t = row % seq;
+  const T* s_row = src + b * src_bs + t * src_ld;
+  T* d_row = dst + b * dst_bs + t * dst_ld;
+  const int per_head = head_dim / kChunk;
+  const int q_chunks = heads * per_head;
+  const int normed = 2 * q_chunks;
+  const int total = COPY_V ? 3 * q_chunks : normed;
+  const float inv_dim = 1.0f / static_cast<float>(head_dim);  // exact: head_dim is a power of two
+  for (int base = 0; base < total; base += kThreads) {
+    const int idx = base + threadIdx.x;
+    float v[kChunk];
+    if (idx < total) {
+      load8(s_row + idx * kChunk, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) v[i] = 0.0f;
+    }
+    float sq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) sq += v[i] * v[i];
+    for (int o = per_head >> 1; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    if (idx < normed) {
+      float sc[kChunk];
+      load8((idx < q_chunks ? q_scale : k_scale) + (idx % per_head) * kChunk, sc);
+      const float r = rsqrtf(__fadd_rn(__fmul_rn(sq, inv_dim), eps));
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) v[i] = __fmul_rn(__fmul_rn(v[i], r), sc[i]);
+    }
+    if (idx < normed || (COPY_V && idx < total)) store8(d_row + idx * kChunk, v);
+  }
+}
+
+// K6G, gelu_rows: the tanh GELU of each element, as PyTorch's
+// gelu(approximate="tanh") computes it in fp32,
+//   y = 0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3)))
+// cast once to T. A thread per 8-element chunk; grid (rows, chunk blocks),
+// rows by (batch, token) strides on both sides.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gelu_rows(const T* __restrict__ src, long long src_bs, long long src_ld, T* __restrict__ dst, long long dst_bs,
+          long long dst_ld, int seq, int width) {
+  const int idx = blockIdx.y * kThreads + threadIdx.x;
+  if (idx >= width / kChunk) return;
+  const long long row = blockIdx.x;
+  const long long b = row / seq;
+  const long long t = row % seq;
+  float v[kChunk];
+  load8(src + b * src_bs + t * src_ld + idx * kChunk, v);
+  constexpr float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
+  constexpr float kKappa = 0.044715f;
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    const float x = v[i];
+    const float inner = kBeta * (x + kKappa * (x * x * x));
+    v[i] = 0.5f * x * (1.0f + tanhf(inner));
+  }
+  store8(dst + b * dst_bs + t * dst_ld + idx * kChunk, v);
+}
+
 // The warp-per-row launch. rows_per_warp is the least that makes the grid
 // fit in one wave: every block resident at once, so none waits for another
 // to finish. Which warp handles a row does not change its result.
@@ -723,6 +810,36 @@ cudaError_t launch_moe_combine(const void* ys, const long long* pos, const float
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_qk_rms(const void* src, long long src_bs, long long src_ld, void* dst, long long dst_bs,
+                          long long dst_ld, const void* q_scale, const void* k_scale, int batch,
+                          int seq, int heads, int head_dim, float eps, bool copy_v, cudaStream_t stream) {
+  if (head_dim < kChunk || head_dim > 32 * kChunk || (head_dim & (head_dim - 1))) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned int>(static_cast<long long>(batch) * seq)), block(kThreads);
+  const T* s = static_cast<const T*>(src);
+  T* d = static_cast<T*>(dst);
+  const T* qs = static_cast<const T*>(q_scale);
+  const T* ks = static_cast<const T*>(k_scale);
+  if (copy_v) {
+    qk_rms_rows<T, true><<<grid, block, 0, stream>>>(s, src_bs, src_ld, d, dst_bs, dst_ld, qs, ks, seq,
+                                                      heads, head_dim, eps);
+  } else {
+    qk_rms_rows<T, false><<<grid, block, 0, stream>>>(s, src_bs, src_ld, d, dst_bs, dst_ld, qs, ks, seq,
+                                                       heads, head_dim, eps);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gelu(const void* src, long long src_bs, long long src_ld, void* dst, long long dst_bs,
+                        long long dst_ld, int batch, int seq, int width, cudaStream_t stream) {
+  const int chunks = width / kChunk;
+  const dim3 grid(static_cast<unsigned int>(static_cast<long long>(batch) * seq), (chunks + kThreads - 1) / kThreads);
+  gelu_rows<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(src), src_bs, src_ld, static_cast<T*>(dst),
+                                              dst_bs, dst_ld, seq, width);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -798,6 +915,32 @@ int moe_combine_fwd(const void* ys, const void* pos, const void* w, const void* 
   const float* wt = static_cast<const float*>(w);
   if (is_bf16) return launch_moe_combine<bf16>(ys, p, wt, shared, out, rows, k, width, s);
   return launch_moe_combine<float>(ys, p, wt, shared, out, rows, k, width, s);
+}
+
+// K8: FLUX's QK-RMSNorm of the q and k heads of a [q | k | v] projection,
+// (batch, seq) rows by (src_bs, src_ld) element strides, into dst rows by
+// (dst_bs, dst_ld); copy_v copies v beside them (dst
+// another buffer), else dst is src and v is left as it is. q_scale and
+// k_scale are (head_dim,); head_dim a power of two from 8 to 256.
+int qk_rms_rows_fwd(const void* src, long long src_bs, long long src_ld, void* dst, long long dst_bs,
+                    long long dst_ld, const void* q_scale, const void* k_scale, int batch, int seq,
+                    int heads, int head_dim, float eps, int copy_v, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch_qk_rms<bf16>(src, src_bs, src_ld, dst, dst_bs, dst_ld, q_scale, k_scale, batch, seq,
+                               heads, head_dim, eps, copy_v != 0, s);
+  }
+  return launch_qk_rms<float>(src, src_bs, src_ld, dst, dst_bs, dst_ld, q_scale, k_scale, batch, seq,
+                              heads, head_dim, eps, copy_v != 0, s);
+}
+
+// K6G: the tanh GELU of (batch, seq, width) rows by (src_bs, src_ld) into
+// rows by (dst_bs, dst_ld).
+int gelu_rows_fwd(const void* src, long long src_bs, long long src_ld, void* dst, long long dst_bs, long long dst_ld,
+                  int batch, int seq, int width, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return launch_gelu<bf16>(src, src_bs, src_ld, dst, dst_bs, dst_ld, batch, seq, width, s);
+  return launch_gelu<float>(src, src_bs, src_ld, dst, dst_bs, dst_ld, batch, seq, width, s);
 }
 
 const char* row_quant_error_string(int err) {

@@ -13,6 +13,12 @@ folded in front of it; :func:`swiglu_halves` is K6 on the two halves of one
 :func:`moe_combine` (K7, no ``fit_tpu`` counterpart) the sparse-MoE FFN's
 weighted sum of each token's expert rows and its shared expert's row. Their
 launches count in ``ops.LAUNCHES`` under "swiglu_glue" and "moe_combine".
+FLUX's blocks (``fit_tpu_torch.models.flux``) add two more, neither with a
+``fit_tpu`` counterpart: :func:`qk_norm` (K8, FLUX's QK-RMSNorm of each
+head of q and k in a ``[q | k | v]`` projection, in place or into another
+buffer at a row offset) and :func:`gelu_glue` (K6G, the tanh GELU between
+two projections), each reading and writing by row stride; counted under
+"qk_norm" and "gelu_glue".
 
 The float blocks of ``fit_tpu_torch.models.layers`` call these three in a
 forward that needs no backward, on the card (``layers.fused_glue``); the
@@ -36,9 +42,13 @@ __all__ = [
     "swiglu_halves",
     "moe_combine",
     "moe_combine_reference",
+    "qk_norm",
+    "gelu_glue",
     "adaln_reference",
     "adaln_residual_reference",
     "swiglu_reference",
+    "qk_norm_reference",
+    "gelu_reference",
 ]
 
 
@@ -158,6 +168,72 @@ def moe_combine(ys, pos, w, shared, *, plain: bool = False) -> torch.Tensor:
         return moe_combine_reference(ys, pos, w, shared)
     out = launch_moe_combine(ys, pos, w, shared)
     LAUNCHES["moe_combine"] += 1
+    return out
+
+
+def qk_norm_reference(x, scale, num_heads: int, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of K8 on one of q or k: each head's ``d`` lanes of x
+    (..., H d) times ``rsqrt(mean(x^2) + eps)`` and the learned ``scale``
+    (d,), in fp32, cast once to x's dtype. (FLUX's ``RMSNorm`` casts before
+    the scale's multiply; one cast after it is a departure inside the
+    dtype's rounding.)"""
+    xf = x.float().reshape(*x.shape[:-1], num_heads, -1)
+    normed = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps) * scale.float()
+    return normed.reshape(x.shape).to(x.dtype)
+
+
+def gelu_reference(x) -> torch.Tensor:
+    """Plain version of K6G: the tanh GELU in fp32, cast once to x's dtype."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def qk_norm(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    num_heads: int,
+    *,
+    out: "torch.Tensor | None" = None,
+    row_offset: int = 0,
+    eps: float = 1e-6,
+    plain: bool = False,
+) -> torch.Tensor:
+    """FLUX's QKNorm on a (B, T, W) projection whose first 3C columns are
+    ``[q | k | v]`` (C = ``num_heads * d``, ``d`` = ``q_scale``'s length),
+    read by row stride: each head of q and of k RMS-normed and scaled
+    (:func:`qk_norm_reference`). With ``out`` None, in place: q and k are
+    overwritten and v left as it is; returns ``qkv``. With ``out`` (B, T',
+    3C), rows ``row_offset .. row_offset + T`` of it receive the normed q and
+    k and a copy of v (the double block's joint ``[txt | img]`` buffer);
+    returns ``out``. K8 on the card, the plain version on the CPU or with
+    ``plain=True``."""
+    b, t = qkv.shape[:2]
+    c = q_scale.shape[0] * num_heads
+    dst = qkv if out is None else out[:, row_offset : row_offset + t]
+    if plain or qkv.device.type == "cpu":
+        q, k = (qk_norm_reference(x, s, num_heads, eps) for x, s in ((qkv[..., :c], q_scale), (qkv[..., c : 2 * c], k_scale)))
+        dst[..., :c] = q
+        dst[..., c : 2 * c] = k
+        if out is not None:
+            dst[..., 2 * c : 3 * c] = qkv[..., 2 * c : 3 * c]
+        return qkv if out is None else out
+    launch_qk_norm(qkv, q_scale, k_scale, num_heads, dst, eps, copy_v=out is not None)
+    LAUNCHES["qk_norm"] += 1
+    return qkv if out is None else out
+
+
+def gelu_glue(x: torch.Tensor, *, out: "torch.Tensor | None" = None, plain: bool = False) -> torch.Tensor:
+    """``gelu_tanh(x)`` of a (B, T, W) x read by row stride, into ``out``
+    (B, T, W), written by row stride (a new contiguous tensor when None):
+    K6G on the card, :func:`gelu_reference` on the CPU or with
+    ``plain=True``. Returns ``out``."""
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if plain or x.device.type == "cpu":
+        out.copy_(gelu_reference(x))
+        return out
+    launch_gelu(x, out)
+    LAUNCHES["gelu_glue"] += 1
     return out
 
 
@@ -344,6 +420,73 @@ def launch_moe_combine(ys, pos, w, shared):
     return out
 
 
+def _check_strided(name: str, t: torch.Tensor, ref: torch.Tensor) -> None:
+    """A (B, T, width) operand read or written by (batch, token) strides:
+    ref's dtype and device, a contiguous last dim, strides and base that
+    keep every 8-element chunk a 16-byte vector."""
+    if t.device.type != "cuda" or t.device != ref.device:
+        raise ValueError(f"{name} is on {t.device}, expected the card {ref.device}")
+    if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != ref.dtype:
+        raise TypeError(f"{name} must be bf16 or fp32 like the source, got {t.dtype}")
+    if t.dim() != 3 or t.shape[-1] % 8:
+        raise ValueError(f"{name} must be (B, T, width) with a width that is a multiple of 8, got {tuple(t.shape)}")
+    if t.stride(-1) != 1 or any(st % 8 for n, st in zip(t.shape[:2], t.stride()[:2]) if n > 1):
+        raise ValueError(f"{name} needs a contiguous last dim and batch and token strides that are multiples of 8, "
+                         f"got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the kernel moves 16-byte vectors)")
+
+
+def _row_strides(t: torch.Tensor) -> "tuple[int, int]":
+    return tuple(st if n > 1 else 0 for n, st in zip(t.shape[:2], t.stride()[:2]))
+
+
+def launch_qk_norm(qkv, q_scale, k_scale, num_heads: int, dst, eps: float, *, copy_v: bool) -> None:
+    """Launch K8 from ``qkv`` into ``dst`` (the same rows of qkv itself
+    when not ``copy_v``). Raises on what the kernel does not take."""
+    _check_strided("qkv", qkv, qkv)
+    _check_strided("out", dst, qkv)
+    d = q_scale.shape[0]
+    c = d * num_heads
+    if d < 8 or d > 256 or d & (d - 1):
+        raise ValueError(f"K8 takes a head dim that is a power of two from 8 to 256, got {d}")
+    if qkv.shape[-1] < 3 * c or dst.shape[-1] < 3 * c or dst.shape[:2] != qkv.shape[:2]:
+        raise ValueError(f"qkv {tuple(qkv.shape)} and its destination {tuple(dst.shape)} must hold 3 x {c} columns "
+                         "over the same rows")
+    for name, s in (("q_scale", q_scale), ("k_scale", k_scale)):
+        if s.shape != (d,) or s.dtype != qkv.dtype or s.device != qkv.device or not s.is_contiguous() or s.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, aligned ({d},) {qkv.dtype} on {qkv.device}")
+    b, t = qkv.shape[:2]
+    if b * t == 0:
+        return
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = _lib().qk_rms_rows_fwd(
+            qkv.data_ptr(), *_row_strides(qkv), dst.data_ptr(), *_row_strides(dst), q_scale.data_ptr(),
+            k_scale.data_ptr(), b, t, num_heads, d, eps, int(copy_v), int(qkv.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(err, "qk_rms_rows")
+
+
+def launch_gelu(x, out) -> None:
+    """Launch K6G from ``x`` into ``out``. Raises on what the kernel does
+    not take."""
+    _check_strided("x", x, x)
+    _check_strided("out", out, x)
+    if out.shape != x.shape:
+        raise ValueError(f"out {tuple(out.shape)} != x {tuple(x.shape)}")
+    b, t, w = x.shape
+    if b * t * w == 0:
+        return
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().gelu_rows_fwd(
+            x.data_ptr(), *_row_strides(x), out.data_ptr(), *_row_strides(out), b, t, w,
+            int(x.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(err, "gelu_rows")
+
+
 def _lib() -> ctypes.CDLL:
     return bind(_build.load("row_quant"))
 
@@ -368,6 +511,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             lib.swiglu_halves_fwd.restype = i32
             lib.moe_combine_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
             lib.moe_combine_fwd.restype = i32
+        if hasattr(lib, "qk_rms_rows_fwd"):  # a build of a tree before FLUX's kernels has neither
+            lib.qk_rms_rows_fwd.argtypes = [ptr, i64, i64, ptr, i64, i64, ptr, ptr, i32, i32, i32, i32,
+                                            ctypes.c_float, i32, i32, ptr]
+            lib.qk_rms_rows_fwd.restype = i32
+            lib.gelu_rows_fwd.argtypes = [ptr, i64, i64, ptr, i64, i64, i32, i32, i32, i32, ptr]
+            lib.gelu_rows_fwd.restype = i32
         lib.row_quant_error_string.argtypes = [i32]
         lib.row_quant_error_string.restype = ctypes.c_char_p
     return lib

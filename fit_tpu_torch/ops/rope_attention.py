@@ -244,17 +244,18 @@ def _bth_strides(x: torch.Tensor) -> "list[int]":
     return [st if n > 1 else 0 for n, st in zip(x.shape[:3], x.stride()[:3])]
 
 
-def _check_views(q, k, v) -> None:
-    """(B, T, H, d) operands of any strides that K1 reads as they are: one
-    dtype, shape and device, the head dim contiguous, the batch, token and
-    head strides multiples of 8 elements and each base 16-byte aligned, so
-    every row segment moves as 16-byte vectors."""
+def _check_views(q, k, v, out=None) -> None:
+    """(B, T, H, d) operands of any strides that K1 reads (or, ``out``,
+    writes) as they are: one dtype, shape and device, the head dim
+    contiguous, the batch, token and head strides multiples of 8 elements
+    and each base 16-byte aligned, so every row segment moves as 16-byte
+    vectors."""
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q must be bf16 or fp32, got {q.dtype}")
     if q.dim() != 4:
         raise ValueError(f"q, k, v must be (B, T, H, d), got {tuple(q.shape)}")
     _check_head_dim(q.shape[-1])
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in (("q", q), ("k", k), ("v", v)) + ((("out", out),) if out is not None else ()):
         if x.dtype != q.dtype or x.shape != q.shape or x.device != q.device:
             raise ValueError(f"{name} is {x.dtype} {tuple(x.shape)} on {x.device}; q is {q.dtype} {tuple(q.shape)} on {q.device}")
         if x.stride(-1) != 1:
@@ -456,6 +457,7 @@ def rope_flash_attention(
     lengths: torch.Tensor,
     scale: float,
     *,
+    out: "torch.Tensor | None" = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Fused RoPE + masked attention on (B, T, H, d) operands, the
@@ -465,7 +467,9 @@ def rope_flash_attention(
     3, H, d) projection): K1 reads them by stride, with no copy. cos/sin:
     (B, T, d) fp32 pair-duplicated tables; lengths: (B,) int32 prefix
     lengths, each at least 1 (not read back to check). Returns (B, T, H, d)
-    in q's dtype. On a CPU tensor, or with ``plain``, the plain version
+    in q's dtype: ``out`` when given, a (B, T, H, d) view that K1 writes by
+    stride as it reads q (for instance columns of a wider buffer), else a
+    new tensor. On a CPU tensor, or with ``plain``, the plain version
     :func:`rope_flash_reference`; on a CUDA tensor K1.
 
     Differentiable in q, k and v: when a gradient is wanted they are
@@ -476,15 +480,17 @@ def rope_flash_attention(
     b, t, h, d = q.shape
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         qkv = torch.stack([q, k, v], dim=2).reshape(b, t, 3 * h * d)
-        out = _RopeAttention.apply(qkv, cos, sin, lengths, scale, h, False, plain)
-        return out.view(b, t, h, d)
+        res = _RopeAttention.apply(qkv, cos, sin, lengths, scale, h, False, plain).view(b, t, h, d)
+        return res if out is None else out.copy_(res)
     if plain or q.device.type == "cpu":
-        return rope_flash_reference(q, k, v, cos, sin, lengths, scale)
+        res = rope_flash_reference(q, k, v, cos, sin, lengths, scale)
+        return res if out is None else out.copy_(res)
     if q.device.type != "cuda":
         raise ValueError(f"no rope attention kernel for device {q.device}")
-    _check_views(q, k, v)
+    _check_views(q, k, v, out)
     _check_tables(cos, sin, lengths, b, t, d, q.device)
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     _k1_launch(q, k, v, out, cos, sin, lengths, scale * LOG2_E)
     LAUNCHES["rope_flash_attention"] += 1
     return out

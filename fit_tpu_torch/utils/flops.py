@@ -235,7 +235,10 @@ def row_work(kernel: str, rows: int, width: int, batch: int = 1, elem_bytes: int
     modulated row; "swiglu_halves" reads each row's ``[gate | up]``;
     "moe_combine" reads ``top_k`` expert rows a token (with an int64
     position and an fp32 weight each) and the shared expert's row, and
-    writes one, ``rows`` being tokens."""
+    writes one, ``rows`` being tokens; "qk_norm" reads and writes the
+    ``width`` columns of a row it norms (``[q | k | v]`` into another
+    buffer, or q and k in place; the learned scales, 2 x head dim, are
+    left out); "gelu_glue" reads and writes a row of ``width``."""
     act = rows * width * elem_bytes
     cond = batch * width * elem_bytes
     codes = rows * width + rows * 4
@@ -247,5 +250,7 @@ def row_work(kernel: str, rows: int, width: int, batch: int = 1, elem_bytes: int
         "swiglu_glue": 3 * act,
         "swiglu_halves": 3 * act,
         "moe_combine": (top_k + 2) * act + rows * top_k * (8 + 4),
+        "qk_norm": 2 * act,
+        "gelu_glue": 2 * act,
     }[kernel]
     return 0.0, float(nbytes)

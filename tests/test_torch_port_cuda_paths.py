@@ -46,7 +46,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_torch_port_cuda import cuda_device, launched, seeded_inception_state  # noqa: F401 — fixture
+from test_torch_port_cuda import bf16_ulps, cuda_device, launched, seeded_inception_state  # noqa: F401 — fixture
 
 from fit_tpu_torch.ops import launch_counts, reset_launches
 
@@ -821,3 +821,126 @@ def test_cli_sample_pngs_scored_by_cli_fid_on_the_card(cuda_device, reference, t
     found = {k: re.search(p, printed, re.M) for k, p in METRIC_LINES.items()}
     assert all(found.values()), printed
     assert all(np.isfinite(float(g)) for m in found.values() for g in m.groups())
+
+
+# -- FLUX: K8, K6G and the two-stream blocks --------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("heads,d", [(24, 128), (6, 64), (3, 32)])
+def test_qk_norm_matches_plain_version(cuda_device, heads, d, dtype):
+    """K8 both ways FLUX calls it: two streams' [q | k | v] rows into one
+    joint buffer at row offsets 0 and 256 (v copied), and q and k normed in
+    place in a single block's wider linear1 rows (v and m untouched)."""
+    from fit_tpu_torch.ops import fused_adaln
+
+    gen = torch.Generator(device=cuda_device).manual_seed(heads * d)
+    c = heads * d
+    b, tt, ti = 2, 256, 1024
+
+    def randn(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda_device) * 2).to(dtype)
+
+    txt, img = randn(b, tt, 3 * c), randn(b, ti, 3 * c)
+    qs, ks = (1 + 0.1 * randn(d).float()).to(dtype), (1 + 0.1 * randn(d).float()).to(dtype)
+    joint = torch.empty((b, tt + ti, 3 * c), device=cuda_device, dtype=dtype)
+    want = torch.empty_like(joint)
+    reset_launches()
+    for x, row in ((txt, 0), (img, tt)):
+        fused_adaln.qk_norm(x, qs, ks, heads, out=joint, row_offset=row)
+        fused_adaln.qk_norm(x, qs, ks, heads, out=want, row_offset=row, plain=True)
+    h1 = randn(b, tt + ti, 7 * c)
+    before = h1.clone()
+    fused_adaln.qk_norm(h1, qs, ks, heads)
+    torch.cuda.synchronize()
+    assert launch_counts() == launched(qk_norm=3)
+    want_h1 = fused_adaln.qk_norm(before.clone(), qs, ks, heads, plain=True)
+    assert torch.equal(joint[..., 2 * c :], want[..., 2 * c :]) and torch.equal(h1[..., 2 * c :], before[..., 2 * c :])
+    for got, ref in ((joint, want), (h1[..., : 2 * c], want_h1[..., : 2 * c])):
+        if dtype == torch.bfloat16:
+            assert bf16_ulps(got, ref) <= 1
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        fused_adaln.qk_norm(txt[..., 1:], qs, ks, heads, out=joint)  # a base off the 16-byte grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,width", [(4352, 12288), (5, 8)])
+def test_gelu_glue_matches_plain_version(cuda_device, rows, width, dtype):
+    """K6G from the m columns of a single block's linear1 rows into the
+    columns after the attention's in linear2's input, by row stride."""
+    from fit_tpu_torch.ops import fused_adaln
+
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + width)
+    d = 3072 if width > 8 else 8
+    h1 = (torch.randn((2, rows, 3 * d + width), generator=gen, device=cuda_device) * 3).to(dtype)
+    cat = torch.zeros((2, rows, d + width), device=cuda_device, dtype=dtype)
+    reset_launches()
+    fused_adaln.gelu_glue(h1[..., 3 * d :], out=cat[..., d:])
+    torch.cuda.synchronize()
+    assert launch_counts() == launched(gelu_glue=1)
+    want = fused_adaln.gelu_glue(h1[..., 3 * d :], plain=True)
+    assert torch.all(cat[..., :d] == 0)
+    if dtype == torch.bfloat16:
+        assert bf16_ulps(cat[..., d:], want) <= 1
+    else:
+        torch.testing.assert_close(cat[..., d:], want, rtol=1e-5, atol=1e-5)
+
+
+def flux_blocks(device, depth=2, single=2):
+    """A bf16 FLUX at FLUX.1-schnell's widths (3072, 24 heads of 128, MLP
+    12,288), ``depth`` double and ``single`` single blocks, every leaf
+    N(0, 0.02) and the QK-norm scales about 2: logits of std ~4, so each
+    query weighs a few keys and a row's position or norm moves the output
+    (at scales about 1 attention over every key is nearly uniform)."""
+    from fit_tpu_torch.models.flux import create_flux
+    from fit_tpu_torch.sampling import cast_for_sampling
+
+    model = seeded(create_flux("flux-schnell", depth=depth, depth_single_blocks=single, dtype=torch.bfloat16,
+                               device=device), 7)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".scale"):
+                p.add_(2.0)
+    return cast_for_sampling(model, device)
+
+
+def flux_inputs(device, n=2, txt=64, h=32, w=48):
+    from fit_tpu_torch.diffusion import flow
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    z = torch.randn((n, 16, h, w), generator=gen, device=device)
+    return dict(img=flow.pack(z), img_ids=flow.img_ids(n, h, w, device),
+                txt=torch.randn((n, txt, 4096), generator=gen, device=device), txt_ids=flow.txt_ids(n, txt, device),
+                y=torch.randn((n, 768), generator=gen, device=device), timesteps=torch.tensor([0.75, 0.25], device=device))
+
+
+@pytest.mark.cuda
+def test_flux_forward_through_the_kernels_matches_plain(cuda_device):
+    """2 double and 2 single blocks at FLUX.1-schnell's widths through K1,
+    K5, K5R, K8 and K6G against the same forward through their plain
+    versions: 3e-2 relative RMS (the H100 reads 0.0125; a wrong position
+    table, text rows at image positions or QK-norm dropped read 0.28-0.65). A double block launches K1 once, K5 and
+    K5R, K8 and K6G twice (a stream each); a single block K1, K5, K8 and K6G
+    once; the last layer K5 once. The plain forward launches none, and the
+    Euler loop over 2 steps stays finite."""
+    from fit_tpu_torch.diffusion import flow
+
+    model, x = flux_blocks(cuda_device), flux_inputs(cuda_device)
+    with torch.inference_mode():
+        reset_launches()
+        got = model(**x)
+        assert launch_counts() == launched(rope_flash_attention=2 + 2, adaln_modulate=2 * 2 + 2 + 1,
+                                           adaln_residual=2 * 2, qk_norm=2 * 2 + 2, gelu_glue=2 * 2 + 2)
+        reset_launches()
+        model.plain_kernels = True
+        want = model(**x)
+        model.plain_kernels = False
+        assert launch_counts() == launched()
+    assert got.shape == (2, 16 * 24, 64) and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert rel_rms(got, want) <= 3e-2
+    out = flow.denoise(model, x["img"], x["img_ids"], x["txt"], x["txt_ids"], x["y"], [1.0, 0.5, 0.0])
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()

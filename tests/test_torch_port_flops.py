@@ -102,6 +102,8 @@ SECTION_6 = {
     ("bf16", "14"): [(4.25, BYTES)],
     ("bf16", "15"): [(11.3, BYTES), (45.2, BYTES), (141.3, BYTES)],
     ("bf16", "16"): [(55.2, BYTES)],
+    ("bf16", "17"): [(180.3, BYTES), (127.7, BYTES)],  # K8 into the joint buffer, then in place
+    ("bf16", "18"): [(240.4, BYTES), (255.4, BYTES)],  # K6G contiguous, then by row stride
     ("fp32", "10"): [((468.5, OPS), (1153.9, OPS))],
     ("fp32", "1"): [((17.3, OPS), (42.6, OPS))],
     ("fp32", "4"): [((32.8, BYTES), (76.8, OPS))],
