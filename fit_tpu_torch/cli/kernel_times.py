@@ -96,14 +96,18 @@ def _cases(table, rows):
 
 
 _K1_XL = (16, 72, 256, PADDED16)
+_K1_XL_1024 = (16, 72, 4096, (4096,) * 12)  # FiT-XL/2 at 1024^2: 12 guided rows
+_K1_FLUX = (24, 128, 4352, (4352,) * 4)  # FLUX.1-schnell's joint attention, batch 4
 _K1_FULL = (16, 72, 256, (256,) * 16)
 _K1_B2 = (12, 64, 256, B2_LENGTHS)
 _K1_DIT = (16, 72, 1024, (1024,) * 16)
 _K2_T4096 = (16, 72, 4096, (4000,))
 CASES = _cases("bf16", [
     ("1", "qkv_rope_attention", _K1_XL),
+    ("1", "qkv_rope_attention", _K1_XL_1024),
     ("2", "rope_flash_attention", _K1_FULL),
     ("3", "rope_flash_attention_views", _K1_FULL),
+    ("3", "rope_flash_attention_joint", _K1_FLUX),
     ("4", "rope_attention_fwd", _K1_B2),
     ("5", "rope_attention_bwd", (16, 72, 256, XL16)),
     ("6", "rope_attention_bwd", _K1_B2),
@@ -181,9 +185,13 @@ def _attention_calls(case: Case, gen: torch.Generator) -> Dict[str, Optional[Cal
     qr, kr, vr = (x.to(dtype).transpose(1, 2).contiguous() for x in ra._rotated_heads(qkv, cos, sin, h))
     if case.kernel.startswith("rope_flash_attention"):
         q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
-        if not case.kernel.endswith("views"):
+        if case.kernel.endswith("attention"):
             q, k, v = (x.contiguous() for x in (q, k, v))
-        return {"kernel": partial(ra.rope_flash_attention, q, k, v, cos, sin, lens, scale),
+        kw = {}
+        if case.kernel.endswith("joint"):  # as FLUX's single block: out= into linear2's input [attn | gelu(m)]
+            wide = torch.empty((b, t, 5 * h * d), dtype=dtype, device="cuda")
+            kw["out"] = wide[..., : h * d].view(b, t, h, d)
+        return {"kernel": partial(ra.rope_flash_attention, q, k, v, cos, sin, lens, scale, **kw),
                 "plain": partial(ra.rope_flash_reference, q, k, v, cos, sin, lens, scale),
                 "sdpa": partial(sdpa, qr, kr, vr, attn_mask=mask, scale=scale)}
     if case.kernel in ("qkv_rope_attention", "rope_attention_fwd"):

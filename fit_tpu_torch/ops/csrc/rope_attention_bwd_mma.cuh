@@ -49,12 +49,11 @@
 // Shared memory: six (64, DP + 8) bf16 tiles a block (K, V and two stages
 // of Q and G; or Q and G staging and two stages of K and V) and, in the
 // dk/dv pass, two stages of 128 floats: 56 KB at DP 64, 68 KB at DP 80.
-// The padded row stride puts an ldmatrix's 8 rows on distinct bank quads,
-// as in the forward.
+// The padded row stride puts an ldmatrix's 8 rows on distinct bank quads.
 
 #pragma once
 
-#include "rope_attention_mma.cuh"
+#include "rope_tiles.cuh"
 
 namespace {
 
@@ -434,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2)
   store_staged<bf16, DP>(dv_dst, vst, row_stride, row0, seq, d);
 }
 
-// 3 blocks an SM at DP <= 80, as in the forward; 2 at DP 128.
+// 3 blocks an SM at DP <= 80; 2 at DP 128.
 template <int DP>
 __global__ void __launch_bounds__(kThreads, DP <= 80 ? 3 : 2)
     bwd_dq_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,

@@ -13,8 +13,8 @@
 // by 2.4-2.7e-7, near fp32's own error. It is the scheme of CUTLASS's
 // OpMultiplyAddFastF32.
 //
-// One block per (64-query tile, head, batch row), 4 warps of 16 query rows,
-// as the bf16 kernel (rope_attention_mma.cuh). Per 64-key tile j, each warp:
+// One block per (64-query tile, head, batch row), 4 warps of 16 query rows.
+// Per 64-key tile j, each warp:
 //   S (16 x 64 fp32, 32 floats a thread) = Q K_j^T by mma.sync m16n8k8
 //     tf32, Q held in registers as fp32 A fragments for the whole key loop
 //     (40 registers at DP 80) and split at each k-step, K_j's B fragments
@@ -70,7 +70,6 @@
 
 #pragma once
 
-#include "rope_attention_mma.cuh"
 #include "rope_tiles.cuh"
 
 namespace {

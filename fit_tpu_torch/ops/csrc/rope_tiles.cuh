@@ -1,9 +1,11 @@
 // Tile helpers shared by the RoPE-attention forward (rope_attention.cu) and
-// backward (rope_attention_bwd.cu): 16-byte vector moves and the rotated
-// tile load from a row-strided matrix (the (B, T, 3C) qkv projection, or
-// one head of any (B, T, H, d) view).
+// backward (rope_attention_bwd.cu): 16-byte vector moves, the rotated tile
+// load from a row-strided matrix (the (B, T, 3C) qkv projection, or one
+// head of any (B, T, H, d) view), and the cp.async, ldmatrix and mma.sync
+// wrappers of the fp32 forward and of both backward kernels.
 //
-// A block has 4 warps and works on 64-row tiles; each warp owns 16 rows.
+// Those kernels' blocks have 4 warps and work on 64-row tiles; each warp
+// owns 16 rows.
 // Tiles hold a head dim padded to DP (a multiple of 16) in shared memory;
 // padded columns and rows past the valid range are zero.
 
@@ -109,5 +111,89 @@ __device__ __forceinline__ void load_rotated(T* dst, const T* src, const float* 
     store8(dst + r * Strides<T, DP>::kTile + c, o);
   }
 }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1: the first src_bytes (0 to 16)
+// are read and the rest zero-filled (src must be a valid address even when
+// nothing is read).
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  cp_async16_n(dst, src, valid ? 16 : 0);
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the special-function unit (ex2.approx, relative error ~2^-22;
+// -inf gives 0, and results below 2^-126 flush to 0, far under P's bf16
+// rounding). exp2f adds range handling that costs registers and, at DP 80
+// with RoPE, a spill.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats as a bf16 pair, the first in the low half (the lower column of
+// an mma fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// A 64-row tile of (64, DP) shared memory, row stride DP + 8, filled by
+// cp.async from rows [row0, row0 + 64) of a row-strided (B, T, H, d) head;
+// rows at or past `valid` and columns at or past d are zero-filled.
+template <int DP>
+__device__ __forceinline__ void async_tile(bf16* dst, const bf16* src, int64_t row_stride, int row0,
+                                           int valid, int d) {
+  constexpr int kChunks = DP / 8;
+  constexpr int kTile = Strides<bf16, DP>::kTile;
+#pragma unroll
+  for (int it = 0; it < kBlockK * kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const int row = row0 + r;
+    const bool ok = row < valid && c < d;
+    cp_async16(smem_u32(dst + r * kTile + c), ok ? src + row * row_stride + c : src, ok);
+  }
+}
+
+// Element strides of one (B, T, H, d) operand; the head dim is contiguous.
+struct Layout {
+  int64_t b, t, h;
+};
 
 }  // namespace

@@ -11,8 +11,9 @@ their ``jax.custom_vjp`` is.
 Two kernels:
 
 * K1 -> ``csrc/rope_attention.cu``: the forward on (B, T, H, d) operands
-  read by stride (bf16 on ``mma.sync`` tensor-core tiles,
-  ``csrc/rope_attention_mma.cuh``; fp32 on ``mma.sync`` TF32 tiles, three
+  read by stride (bf16 on ``wgmma`` fed by TMA, after a pre-pass that
+  rotates K once into scratch the wrapper allocates,
+  ``csrc/rope_attention_sm90.cuh``; fp32 on ``mma.sync`` TF32 tiles, three
   products each for fp32 accuracy, ``csrc/rope_attention_tf32.cuh``), with
   RoPE or (null tables) without it, optionally with each row's
   log2-sum-exp ``lse2``
@@ -21,7 +22,8 @@ Two kernels:
   launch it, each counted under its own name in ``ops.LAUNCHES``:
   :func:`rope_attention_fwd` (the packed projection),
   :func:`rope_flash_attention` and
-  ``fit_tpu_torch.ops.attention.masked_attention`` (RoPE off).
+  ``fit_tpu_torch.ops.attention.masked_attention`` (RoPE off); the bf16
+  K pre-pass counts as ``rope_attention_rotate_k``, once a call with RoPE.
 * K2, :func:`rope_attention_bwd` -> ``csrc/rope_attention_bwd.cu``: dqkv
   (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T: a prologue into
   scratch the wrapper allocates, then dk/dv and dq passes on ``mma.sync``
@@ -266,26 +268,46 @@ def _check_views(q, k, v, out=None) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel moves 16-byte vectors)")
 
 
+K1_PADDINGS = (16, 32, 64, 80, 128)  # the compiled head-dim paddings: d pads to the smallest >= d
+K1_KEY_TILE = 128  # the bf16 kernel's keys a tile
+
+
+def _k1_scratch(k: torch.Tensor) -> torch.Tensor:
+    """The bf16 K1's rotated-K scratch for a (B, T, H, d) operand: (B, H, T
+    rounded up to the key tile, DP) bf16, DP the padding of d (FLUX.1's B 4,
+    T 4352, H 24, d 128: 107 MB)."""
+    b, t, h, d = k.shape
+    dp = next(p for p in K1_PADDINGS if p >= d)
+    t_pad = -(-t // K1_KEY_TILE) * K1_KEY_TILE
+    return torch.empty((b, h, t_pad, dp), dtype=torch.bfloat16, device=k.device)
+
+
 def _k1_launch(q, k, v, out, cos, sin, lengths, q_mul, lse=None) -> None:
     """Launches K1 on (B, T, H, d) operands that the caller has checked
     (:func:`_check_views`, :func:`_check_tables`), writing ``out`` (B, T, H,
     d, any strides the checks allow) and, when given, ``lse`` (B, T, H)
     fp32. ``cos`` None runs attention without RoPE. Raises if the launch
-    fails; counts nothing (each entry counts its own launches)."""
+    fails. Counts the bf16 K pre-pass (``rope_attention_rotate_k``, with
+    RoPE); each entry counts its own call."""
     b, t, h, d = q.shape
     lib = _lib("rope_attention")
     strides = [st for x in (q, k, v, out) for st in _bth_strides(x)]
+    bf16 = q.dtype == torch.bfloat16
+    kscratch = _k1_scratch(k) if bf16 and cos is not None else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.rope_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
             None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
             lengths.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, t, h, d, q_mul, int(q.dtype == torch.bfloat16), stream,
+            None if kscratch is None else kscratch.data_ptr(),
+            b, t, h, d, q_mul, int(bf16), stream,
         )
     if err != 0:
         msg = lib.rope_attention_error_string(err).decode()
         raise RuntimeError(f"rope_attention_fwd launch failed: {msg} (cudaError {err})")
+    if kscratch is not None:
+        LAUNCHES["rope_attention_rotate_k"] += 1
 
 
 def _check_bwd_args(qkv, g, out, lse, num_heads) -> None:
@@ -499,8 +521,8 @@ def rope_flash_attention(
 # source -> (C entry, its argument kinds: pointer, int64, int, float)
 _ENTRIES = {
     # q, k, v, out, their (batch, token, head) strides, cos, sin, lengths, lse,
-    # batch, seq, heads, head_dim, q_mul, is_bf16, stream
-    "rope_attention": ("rope_attention_fwd", "pppp" + "l" * 12 + "pppp" "iiii" "fip"),
+    # kscratch, batch, seq, heads, head_dim, q_mul, is_bf16, stream
+    "rope_attention": ("rope_attention_fwd", "pppp" + "l" * 12 + "ppppp" "iiii" "fip"),
     # qkv, g, out, lse, cos, sin, lengths, dqkv, rot, stats, batch, seq, heads, head_dim, scale,
     # is_bf16, passes, stream
     "rope_attention_bwd": ("rope_attention_bwd", "pppppppppp" "iiii" "fiip"),

@@ -54,9 +54,11 @@ Tolerances, against the plain versions on the same inputs:
   call of one row, the server's, and a seeded 256^2 request served alone or
   beside requests of other sizes.
 
-Every test that launches a kernel asserts ``ops.launch_counts()``, and
-ptxas's report of each build shows no spill in the bf16 and fp32 K1 and K2
-at DP 64 and 80 nor in any width of K3's warp-per-row kernel. The paths
+Every test that launches a kernel asserts ``ops.launch_counts()`` (the
+bf16 K1 with RoPE counts its K pre-pass too), and ptxas's report of each
+build shows no spill in the bf16 and fp32 K1 and K2 at DP 64 and 80, in
+the bf16 K1 at DP 128 either, nor in any width of K3's warp-per-row
+kernel. The paths
 through whole models, the command lines and the Trainer on the card are in
 ``test_torch_port_cuda_paths.py``.
 """
@@ -87,24 +89,28 @@ def launched(**counts) -> dict:
 
 
 # The kernels' ptxas reports: (source, the mangled names' pattern, its
-# instantiations, the key group holding DP or None). The bf16 and fp32 K1
-# and K2 must not spill at the main paths' paddings, DP 64 and 80; K3's
-# warp-per-row kernel at no width (every FiT and DiT width to 1152).
+# instantiations, the key group holding DP or None, the paddings guarded).
+# The fp32 K1 and K2 and the bf16 K2 must not spill at the main paths'
+# paddings, DP 64 and 80; the bf16 K1 (the wgmma kernel and its K
+# pre-pass) at those and at DP 128 (FLUX.1, DiT-MoE); K3's warp-per-row
+# kernel at no width (every FiT and DiT width to 1152).
+MAIN_DP = (64, 80)
 NO_SPILL = {
-    "bf16-K1": ("rope_attention", r"rope_attention_mma_kernelILi(\d+)ELb([01])E", 10, 0),
-    "fp32-K1": ("rope_attention", r"rope_attention_tf32_kernelILi(\d+)ELb([01])E", 10, 0),
-    "bf16-K2": ("rope_attention_bwd", r"bwd_(dkdv|dq)_mma_kernelILi(\d+)E", 10, 1),
-    "fp32-K2": ("rope_attention_bwd", r"bwd_(dkdv|dq)_tf32_kernelILi(\d+)E", 10, 1),
-    "K3-warp-rows": ("row_quant", r"adaln_warp_rowsI(13__nv_bfloat16|f)Li(\d+)E", 18, None),
+    "bf16-K1": ("rope_attention", r"rope_attention_kernel_sm90ILi(\d+)ELb([01])E", 10, 0, MAIN_DP + (128,)),
+    "bf16-K1-rotate-k": ("rope_attention", r"rope_attention_kernel_rotate_kILi(\d+)E", 5, 0, MAIN_DP + (128,)),
+    "fp32-K1": ("rope_attention", r"rope_attention_tf32_kernelILi(\d+)ELb([01])E", 10, 0, MAIN_DP),
+    "bf16-K2": ("rope_attention_bwd", r"bwd_(dkdv|dq)_mma_kernelILi(\d+)E", 10, 1, MAIN_DP),
+    "fp32-K2": ("rope_attention_bwd", r"bwd_(dkdv|dq)_tf32_kernelILi(\d+)E", 10, 1, MAIN_DP),
+    "K3-warp-rows": ("row_quant", r"adaln_warp_rowsI(13__nv_bfloat16|f)Li(\d+)E", 18, None, None),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", list(NO_SPILL))
 def test_kernels_do_not_spill(cuda_device, kernel):
-    source, pattern, count, dp = NO_SPILL[kernel]
+    source, pattern, count, dp, guarded = NO_SPILL[kernel]
     usage = _build.ptxas_usage(_build.ptxas_log(source), pattern)
-    _build.check_no_spill(usage, count, lambda key: dp is None or key[dp] in (64, 80))
+    _build.check_no_spill(usage, count, lambda key: dp is None or key[dp] in guarded)
 
 
 def make_inputs(seed, h, d, t, lengths, device, dtype):
@@ -142,7 +148,7 @@ def test_kernel_matches_plain_version(cuda_device, dtype, atol, h, d, t, lengths
     reset_launches()
     got = ra.qkv_rope_attention(qkv, cos, sin, lens, d**-0.5, h)
     torch.cuda.synchronize()
-    assert launch_counts() == launched(rope_attention_fwd=1)
+    assert launch_counts() == launched(rope_attention_fwd=1, rope_attention_rotate_k=int(dtype == torch.bfloat16))
     assert got.dtype == dtype and got.shape == (len(lengths), t, h * d)
     want = ra.rope_attention_reference(qkv.float(), cos, sin, lens, d**-0.5, h)
     assert torch.isfinite(got).all()
@@ -189,7 +195,8 @@ def test_lse_and_backward_match_plain_versions(cuda_device, dtype, h, d, t, leng
     out, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
     dqkv = ra.rope_attention_bwd(qkv, g, out, lse, cos, sin, lens, d**-0.5, h)
     torch.cuda.synchronize()
-    assert launch_counts() == launched(rope_attention_fwd=1, rope_attention_bwd=1)
+    assert launch_counts() == launched(rope_attention_fwd=1, rope_attention_bwd=1,
+                                       rope_attention_rotate_k=int(dtype == torch.bfloat16))
     assert torch.equal(out, ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h))  # lse changes nothing else
     _, lse_want = ra.rope_attention_reference(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
     tol = GRAD_REL[dtype]
@@ -217,13 +224,13 @@ def test_autograd_function_launches_k1_with_lse_and_k2(cuda_device):
     g = torch.randn(out.shape[::-1], device=cuda_device).to(out.dtype).permute(2, 1, 0)
     (dx,) = torch.autograd.grad(out, x, g)
     torch.cuda.synchronize()
-    assert launch_counts() == launched(rope_attention_fwd=1, rope_attention_bwd=1)
+    assert launch_counts() == launched(rope_attention_fwd=1, rope_attention_bwd=1, rope_attention_rotate_k=1)
     o, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, 0.125, 12, with_lse=True)
     assert torch.equal(dx, ra.rope_attention_bwd(qkv, g.contiguous(), o, lse, cos, sin, lens, 0.125, 12))
     reset_launches()
     with torch.inference_mode():
         ra.qkv_rope_attention(x, cos, sin, lens, 0.125, 12)
-    assert launch_counts() == launched(rope_attention_fwd=1)
+    assert launch_counts() == launched(rope_attention_fwd=1, rope_attention_rotate_k=1)
 
 
 STRIDED_SHAPES = [
@@ -281,7 +288,7 @@ def test_rope_flash_attention_kernel_matches_plain_version(cuda_device, dtype, a
     reset_launches()
     got = ra.rope_flash_attention(q, k, v, cos, sin, lens, d**-0.5)
     torch.cuda.synchronize()
-    assert launch_counts() == launched(rope_flash_attention=1)
+    assert launch_counts() == launched(rope_flash_attention=1, rope_attention_rotate_k=int(dtype == torch.bfloat16))
     assert got.dtype == dtype and got.shape == (b, t, h, d)
     want = ra.rope_flash_reference(q.float(), k.float(), v.float(), cos, sin, lens, d**-0.5)
     assert_valid_rows_close(got, want, lengths, atol)
@@ -312,7 +319,8 @@ def test_gradients_through_the_strided_entries(cuda_device, dtype):
     out = ra.rope_flash_attention(*views, cos, sin, lens, d**-0.5)
     grads = torch.autograd.grad(out, views, g)
     torch.cuda.synchronize()
-    assert launch_counts() == launched(masked_attention=1, rope_attention_fwd=1, rope_attention_bwd=1)
+    assert launch_counts() == launched(masked_attention=1, rope_attention_fwd=1, rope_attention_bwd=1,
+                                       rope_attention_rotate_k=int(dtype == torch.bfloat16))
     o, lse = ra.rope_attention_fwd(qkv, cos, sin, lens, d**-0.5, h, with_lse=True)
     want = ra.rope_attention_backward_reference(qkv, g.reshape(b, t, h * d), o, lse, cos, sin, lens, d**-0.5, h)
     want = want.view(b, t, 3, h, d).unbind(2)
@@ -340,8 +348,9 @@ def test_strided_entries_reject_bad_views(cuda_device):
     assert launch_counts() == launched()
 
 
-# The bf16 K1 (the mma.sync kernel) over its whole contract, through the C
-# entry's wrapper: the operands as views of the packed (B, T, 3C) projection,
+# The bf16 K1 (the K pre-pass and the wgmma kernel) over its whole
+# contract, through the C entry's wrapper: the operands as views of the
+# packed (B, T, 3C) projection,
 # contiguous (B, T, H, d) tensors, or contiguous (B, H, T, d) tensors read
 # through their transpose (the output in the same layout); RoPE on and off;
 # lse on and off; every compiled padding (d = 72 pads to 80); and T from 1
@@ -410,6 +419,52 @@ def test_bf16_k1_launches_repeat_bit_for_bit(cuda_device, layout, rope):
     ra._k1_launch(q, k, v, out2, cos, sin, lens, d**-0.5 * ra.LOG2_E, lse2)
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+# K1 at the long-T cells' shapes: FLUX.1's joint attention (d 128, T 4352;
+# q, k, v views of the (B, T, 3, H, d) joint buffer, the output written
+# into the first columns of a wider buffer, as the single block's linear2
+# input) and FiT-XL/2 at 1024^2 (d 72, T 4096, the packed projection),
+# each batch holding a full row, a row whose length is no multiple of the
+# 128-key tile, and a one-key row.
+LONG_T = {
+    "flux": (3, 128, 4352, (4352, 4001, 1)),
+    "xl-1024": (3, 72, 4096, (4096, 3999, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(LONG_T))
+def test_bf16_k1_at_long_t_matches_plain_version(cuda_device, cell):
+    """At 3e-2 against the plain version on every valid row; the other
+    columns of the wider output buffer untouched; a second launch bit for
+    bit the first."""
+    h, d, t, lengths = LONG_T[cell]
+    b = len(lengths)
+    qkv, cos, sin, lens = make_inputs(21, h, d, t, lengths, cuda_device, torch.bfloat16)
+    q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+    reset_launches()
+    if cell == "flux":
+        wide = torch.full((b, t, 5 * h * d), 7.0, dtype=torch.bfloat16, device=cuda_device)
+        out = wide[..., : h * d].view(b, t, h, d)
+        entry = "rope_flash_attention"
+
+        def call():
+            return ra.rope_flash_attention(q, k, v, cos, sin, lens, d**-0.5, out=out)
+    else:
+        entry = "rope_attention_fwd"
+
+        def call():
+            return ra.qkv_rope_attention(qkv, cos, sin, lens, d**-0.5, h).view(b, t, h, d)
+    got = call().clone()
+    again = call()
+    torch.cuda.synchronize()
+    assert launch_counts() == launched(**{entry: 2}, rope_attention_rotate_k=2)
+    assert torch.equal(got, again) and torch.isfinite(got).all()
+    if cell == "flux":
+        assert bool((wide[..., h * d :] == 7.0).all())
+    want = ra.rope_flash_reference(q.float(), k.float(), v.float(), cos, sin, lens, d**-0.5)
+    assert_valid_rows_close(got, want, lengths, 3e-2)
 
 
 @pytest.mark.cuda
@@ -809,8 +864,9 @@ def test_fit_forward_runs_its_row_glue_in_the_row_kernels(cuda_device):
     with torch.inference_mode():
         got = model(*args, lengths=lengths, force_drop_ids=drop)
         torch.cuda.synchronize()
-        assert launch_counts() == launched(rope_attention_fwd=model.depth, adaln_modulate=model.depth + 1,
-                                           adaln_residual=model.depth, swiglu_glue=model.depth)
+        assert launch_counts() == launched(rope_attention_fwd=model.depth, rope_attention_rotate_k=model.depth,
+                                           adaln_modulate=model.depth + 1, adaln_residual=model.depth,
+                                           swiglu_glue=model.depth)
         reset_launches()
         model.plain_kernels = True
         want = model(*args, lengths=lengths, force_drop_ids=drop)
@@ -827,7 +883,8 @@ def test_fit_forward_runs_its_row_glue_in_the_row_kernels(cuda_device):
         out = model(*args, lengths=lengths, force_drop_ids=drop)
         out.float().square().mean().backward()
     torch.cuda.synchronize()
-    assert launch_counts() == launched(rope_attention_fwd=model.depth, rope_attention_bwd=model.depth)
+    assert launch_counts() == launched(rope_attention_fwd=model.depth, rope_attention_bwd=model.depth,
+                                       rope_attention_rotate_k=model.depth)
 
 
 @pytest.mark.cuda

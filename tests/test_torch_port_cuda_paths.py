@@ -137,7 +137,7 @@ def test_sampling_launches_each_kernel_once_a_block_a_step(cuda_device):
     latents = sampler.sample([0, 125, 250, 375], 256, 256, generator=gen)
     mixed = sampler.sample_mixed([0, 125, 250, 375], MIXED_SIZES, generator=gen)
     torch.cuda.synchronize()
-    assert launch_counts() == launched(rope_attention_fwd=2 * 3 * 2, **float_glue(3 * 2))
+    assert launch_counts() == launched(rope_attention_fwd=2 * 3 * 2, rope_attention_rotate_k=2 * 3 * 2, **float_glue(3 * 2))
     assert tuple(latents.shape) == (4, 4, 32, 32) and torch.isfinite(latents).all()
     assert [tuple(m.shape) for m in mixed] == [(4, h // 8, w // 8) for h, w in MIXED_SIZES]
     assert all(torch.isfinite(m).all() for m in mixed)
@@ -183,7 +183,7 @@ def test_int8_forward_through_the_kernels_matches_plain(cuda_device):
         assert rel_rms(guided_forward(q32, x), guided_forward(q32, x, plain=True)) <= FORWARD_REL_RMS
     reset_launches()
     got = guided_forward(qmodel, inputs)
-    assert launch_counts() == launched(rope_attention_fwd=2, adaln_quant=4, silu_mul_quant=2)
+    assert launch_counts() == launched(rope_attention_fwd=2, rope_attention_rotate_k=2, adaln_quant=4, silu_mul_quant=2)
     assert rel_rms(got, guided_forward(qmodel, inputs, plain=True)) <= FORWARD_REL_RMS
 
 
@@ -266,7 +266,8 @@ def test_int8_serving_over_http_on_the_card(cuda_device):
         thread.join(timeout=60)
     assert check_burst(responses, stats, health) <= 1e-3
     forwards = STEPS * stats["batches"]
-    assert counts == launched(rope_attention_fwd=2 * forwards, adaln_quant=4 * forwards, silu_mul_quant=2 * forwards)
+    assert counts == launched(rope_attention_fwd=2 * forwards, rope_attention_rotate_k=2 * forwards,
+                               adaln_quant=4 * forwards, silu_mul_quant=2 * forwards)
 
 
 @pytest.mark.cuda
@@ -343,7 +344,7 @@ def test_b2_training_through_the_kernels_matches_plain(cuda_device, kind):
             forward = lambda x, s: model(x, s, y, pos, None, train=False, lengths=lengths)  # noqa: E731
             return diffusion.training_losses(forward, x0, ts, noise)["loss"].mean()
 
-        per_run = launched(rope_attention_fwd=2, rope_attention_bwd=2)
+        per_run = launched(rope_attention_fwd=2, rope_attention_bwd=2, rope_attention_rotate_k=2)
     else:
         model = b2_blocks(dtype, remat=True)
         pos = torch.zeros((n, t, model.head_dim))
@@ -366,7 +367,8 @@ def test_b2_training_through_the_kernels_matches_plain(cuda_device, kind):
         def loss_fn():
             return diffusion_loss(model, diffusion, batch)[0]
 
-        per_run = launched(rope_attention_fwd=4, rope_attention_bwd=2)
+        per_run = launched(rope_attention_fwd=4, rope_attention_bwd=2,
+                           rope_attention_rotate_k=4 if dtype == torch.bfloat16 else 0)
 
     def run(plain):
         model.plain_kernels = plain
@@ -445,7 +447,9 @@ def test_trainer_resumes_its_loss_stream_on_the_card(cuda_device, tmp_path, b2_t
                                   ("fp32", 0, 2, {"compute_dtype": "float32"})]:
         step, counts, runs[name], _ = train(tmp_path, name, tmp_path / "latents", stop, **kw)
         k1 = (1 if name == "bucket" else 2) * 2 * 2 * (stop - start)
-        assert step == stop and counts == launched(rope_attention_fwd=k1, rope_attention_bwd=2 * 2 * (stop - start))
+        rotate_k = 0 if name == "fp32" else k1  # the bf16 K1's K pre-pass
+        assert step == stop and counts == launched(rope_attention_fwd=k1, rope_attention_bwd=2 * 2 * (stop - start),
+                                                   rope_attention_rotate_k=rotate_k)
     assert sorted(runs["straight"]) == sorted(runs["split"]) == [1, 2, 3, 4]
     assert max(abs(runs["split"][s] - runs["straight"][s]) for s in range(1, 5)) <= 1e-6
     assert sorted(runs["bucket"]) == sorted(runs["fp32"]) == [1, 2]
@@ -520,7 +524,8 @@ def test_preprocessed_images_train_the_mlp_trainer_on_the_card(cuda_device, tmp_
     step, counts, losses, trainer = train(tmp_path, "mlp", lat_dir, 2, global_batch=8, ffn="mlp")
     assert all(isinstance(blk.ffn, GeluMlp) for blk in trainer.model.blocks)
     assert step == 2 and sorted(losses) == [1, 2] and np.isfinite(list(losses.values())).all()
-    assert counts == launched(rope_attention_fwd=2 * 2 * 2 * 2, rope_attention_bwd=2 * 2 * 2)
+    assert counts == launched(rope_attention_fwd=2 * 2 * 2 * 2, rope_attention_bwd=2 * 2 * 2,
+                               rope_attention_rotate_k=2 * 2 * 2 * 2)
 
 
 # -- DiT and FiT's other modes ------------------------------------------------
@@ -651,7 +656,9 @@ def test_cli_sample_on_the_card(cuda_device, reference, tmp_path, kind):
              "ddim-mixed": ["--sampler", "ddim", "--image-sizes", ",".join(f"{h}x{w}" for h, w in MIXED_SIZES)],
              "fp32": ["--sampler", "ddim", "--dtype", "float32"]}[kind]
     argv = cli_args(ckpt) + extra
-    forwards = launched(rope_attention_fwd=S2_DEPTH * STEPS, **float_glue(STEPS, S2_DEPTH))
+    rotate_k = 0 if kind == "fp32" else S2_DEPTH * STEPS  # the bf16 K1's K pre-pass
+    forwards = launched(rope_attention_fwd=S2_DEPTH * STEPS, rope_attention_rotate_k=rotate_k,
+                        **float_glue(STEPS, S2_DEPTH))
     res, counts = in_process(cli_sample.main, argv + ["--output-dir", str(tmp_path / "latents")])
     assert counts == forwards and all(np.isfinite(lat).all() for lat in res["latents"])
     if kind == "fp32":
@@ -709,7 +716,8 @@ def test_cli_quantize_and_the_int8_artifact_on_the_card(cuda_device, reference, 
 
     ckpt, _, vae_dir = reference
     art, counts = artifact
-    assert counts == launched(rope_attention_fwd=2 * S2_DEPTH, **float_glue(2, S2_DEPTH))
+    assert counts == launched(rope_attention_fwd=2 * S2_DEPTH, rope_attention_rotate_k=2 * S2_DEPTH,
+                               **float_glue(2, S2_DEPTH))
     _, counts = in_process(cli_quantize.main, cli_args(ckpt) + ["--output", str(tmp_path / "int8")])
     assert counts == launched()
     qcfg = SampleConfig(**{**json.loads((art / "config.json").read_text()), "checkpoint_path": str(art)})
@@ -724,8 +732,8 @@ def test_cli_quantize_and_the_int8_artifact_on_the_card(cuda_device, reference, 
     eq_model, loaded = (cast_for_sampling(m, cuda_device) for m in (eq_model, loaded))
     assert rel_rms(guided_forward(eq_model, inputs), guided_forward(loaded, inputs)) <= FORWARD_REL_RMS
 
-    int8 = launched(rope_attention_fwd=S2_DEPTH * STEPS, adaln_quant=2 * S2_DEPTH * STEPS,
-                    silu_mul_quant=S2_DEPTH * STEPS)
+    int8 = launched(rope_attention_fwd=S2_DEPTH * STEPS, rope_attention_rotate_k=S2_DEPTH * STEPS,
+                    adaln_quant=2 * S2_DEPTH * STEPS, silu_mul_quant=S2_DEPTH * STEPS)
     res, counts = in_process(cli_sample.main, ["--checkpoint-path", str(art), "--sampler", "dpm", "--device", "cuda",
                                                "--num-sampling-steps", str(STEPS), "--num-samples", "4",
                                                "--batch-size", "4", "--output-dir", str(tmp_path / "int8_out")])
@@ -784,7 +792,8 @@ def test_cli_serve_as_a_process_on_the_card(cuda_device, reference, artifact, pi
     printed = [line for line in log if line.startswith("[serve] kernel launches: ")]
     forwards = STEPS * (stats["batches"] + 1)
     assert json.loads(printed[-1].split(": ", 1)[1]) == launched(
-        rope_attention_fwd=S2_DEPTH * forwards, adaln_quant=2 * S2_DEPTH * forwards, silu_mul_quant=S2_DEPTH * forwards)
+        rope_attention_fwd=S2_DEPTH * forwards, rope_attention_rotate_k=S2_DEPTH * forwards,
+        adaln_quant=2 * S2_DEPTH * forwards, silu_mul_quant=S2_DEPTH * forwards)
 
 
 METRIC_LINES = {"FID": r"^FID: (\S+)$", "sFID": r"^sFID: (\S+)$", "IS": r"^Inception Score: (\S+) \+/- (\S+)$",
@@ -806,6 +815,7 @@ def test_cli_sample_pngs_scored_by_cli_fid_on_the_card(cuda_device, reference, t
                                                                        vae_dir, "--output-dir", samples])
     printed = [line for line in out.splitlines() if line.startswith("[sample] kernel launches: ")]
     assert json.loads(printed[-1].split(": ", 1)[1]) == launched(rope_attention_fwd=S2_DEPTH * STEPS,
+                                                                  rope_attention_rotate_k=S2_DEPTH * STEPS,
                                                                   **float_glue(STEPS, S2_DEPTH))
     assert [im.shape for im in pngs(samples)] == [(256, 256, 3)] * 16
     write_image_tree(ref_dir, 16, seed=12, sizes=[(256, 256)])
@@ -933,7 +943,8 @@ def test_flux_forward_through_the_kernels_matches_plain(cuda_device):
     with torch.inference_mode():
         reset_launches()
         got = model(**x)
-        assert launch_counts() == launched(rope_flash_attention=2 + 2, adaln_modulate=2 * 2 + 2 + 1,
+        assert launch_counts() == launched(rope_flash_attention=2 + 2, rope_attention_rotate_k=2 + 2,
+                                           adaln_modulate=2 * 2 + 2 + 1,
                                            adaln_residual=2 * 2, qk_norm=2 * 2 + 2, gelu_glue=2 * 2 + 2)
         reset_launches()
         model.plain_kernels = True

@@ -86,9 +86,9 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 # 3xTF32 basis, then the FMA rate's.
 OPS, BYTES = "operations", "bytes"
 SECTION_6 = {
-    ("bf16", "1"): [(8.0, BYTES)],
+    ("bf16", "1"): [(8.0, BYTES), (938.0, OPS)],  # XL T 256, then T 4096 (12 guided rows at 1024^2)
     ("bf16", "2"): [(12.0, BYTES)],
-    ("bf16", "3"): [(12.0, BYTES)],
+    ("bf16", "3"): [(12.0, BYTES), (941.3, OPS)],  # XL T 256, then FLUX's joint attention (B 4, T 4352, d 128)
     ("bf16", "4"): [(17.1, BYTES)],
     ("bf16", "5"): [(14.7, BYTES)],
     ("bf16", "6"): [(32.8, BYTES)],

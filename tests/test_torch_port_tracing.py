@@ -120,6 +120,7 @@ COUNTERS = [
     (rope_attention, "rope_attention_fwd"),
     (rope_attention, "rope_attention_bwd"),
     (rope_attention, "rope_flash_attention"),
+    (rope_attention, "rope_attention_rotate_k"),
     (attention, "masked_attention"),
     (quant, "adaln_quant"),
     (quant, "silu_mul_quant"),

@@ -603,7 +603,7 @@ def test_trainer_validation_bucket_packing_and_cli(tmp_path, tiny_models):
 @pytest.mark.parametrize(
     "sources,group",
     [
-        (("rope_attention.cu", "rope_attention_mma.cuh", "rope_attention_tf32.cuh"), "K1 attention forward"),
+        (("rope_attention.cu", "rope_attention_sm90.cuh", "rope_attention_tf32.cuh"), "K1 attention forward"),
         (("rope_attention_bwd.cu", "rope_attention_bwd_mma.cuh", "rope_attention_bwd_tf32.cuh"),
          "K2 attention backward"),
     ],
