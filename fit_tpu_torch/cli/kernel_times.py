@@ -39,7 +39,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from fit_tpu_torch.utils.flops import bound_us, k1_work, k2_pass_work, k2_work, row_work
+from fit_tpu_torch.utils.flops import bound_us, cross_work, k1_work, k2_pass_work, k2_work, row_work
 
 PADDED16 = (256, 256, 200, 130, 64, 1, 255, 129, 256, 256, 224, 180, 256, 33, 2, 256)
 B2_LENGTHS = (256, 200, 130, 64, 1, 255, 129, 33) * 8  # the FiT-B/2 training micro-batch
@@ -52,7 +52,9 @@ class Case:
     """One timed call: ``row`` of section 6's ``table`` ("bf16" or "fp32"),
     ``kernel`` a wrapper's name (a K2 pass as "k2_<pass>") and its shape:
     (heads, head dim, T, lengths) for attention, (rows, width, batch) for
-    a row kernel (tokens for ``moe_combine``)."""
+    a row kernel (tokens for ``moe_combine``); for ``cross_attention``
+    (heads, head dim, query tokens, the rows' key lengths), the keys as many
+    as the longest length."""
 
     table: str
     row: str
@@ -73,7 +75,9 @@ class Case:
         if not self.attention:
             rows, width, batch = self.shape
             return row_work(self.kernel, rows, width, batch, es)
-        h, d, _, lengths = self.shape
+        h, d, t, lengths = self.shape
+        if self.kernel == "cross_attention":
+            return cross_work([t] * len(lengths), lengths, h, d, es)
         if self.kernel.startswith("k2_"):
             return k2_pass_work(lengths, h, d, es)[self.kernel[3:]]
         if self.kernel == "rope_attention_bwd":
@@ -102,6 +106,7 @@ _K1_FULL = (16, 72, 256, (256,) * 16)
 _K1_B2 = (12, 64, 256, B2_LENGTHS)
 _K1_DIT = (16, 72, 1024, (1024,) * 16)
 _K2_T4096 = (16, 72, 4096, (4000,))
+_WAN_ROWS = (2 * 32760, 5120, 2)  # Wan2.1-T2V-14B's guided pair of 81-frame 832x480 rows, D 5120
 CASES = _cases("bf16", [
     ("1", "qkv_rope_attention", _K1_XL),
     ("1", "qkv_rope_attention", _K1_XL_1024),
@@ -119,6 +124,7 @@ CASES = _cases("bf16", [
     ("10", "masked_attention", _K1_DIT),
     ("11", "adaln_modulate", (4096, 1152, 16)),
     ("11", "adaln_modulate", (51200, 1152, 200)),
+    ("11", "adaln_modulate_mixed", _WAN_ROWS),
     ("12", "swiglu_glue", (4096, 3072, 16)),
     ("12", "swiglu_glue", (51200, 3072, 200)),
     ("12", "swiglu_halves", (32768, 5632, 1)),
@@ -127,11 +133,14 @@ CASES = _cases("bf16", [
     ("15", "adaln_residual", (4096, 1152, 16)),
     ("15", "adaln_residual", (16384, 1152, 64)),
     ("15", "adaln_residual", (51200, 1152, 200)),
+    ("15", "adaln_residual_mixed", _WAN_ROWS),
     ("16", "moe_combine", (16384, 1408, 1)),
     ("17", "qk_norm", (16384, 3 * 3072, 4)),
     ("17", "qk_norm", (17408, 2 * 3072, 4)),
     ("18", "gelu_glue", (16384, 12288, 4)),
     ("18", "gelu_glue", (17408, 12288, 4)),
+    ("19", "cross_attention", (40, 128, 32760, (512, 512))),  # Wan's video rows over 512 text keys
+    ("20", "qk_norm_wide", _WAN_ROWS),
 ]) + _cases("fp32", [
     ("10", "masked_attention", _K1_DIT),
     ("1", "qkv_rope_attention", _K1_XL),
@@ -170,10 +179,18 @@ def _attention_calls(case: Case, gen: torch.Generator) -> Dict[str, Optional[Cal
 
     h, d, t, lengths = case.shape
     b, scale, dtype = len(lengths), d**-0.5, case.dtype
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if case.kernel == "cross_attention":  # q of the video rows, k and v views of the text rows' [k | v]
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
+        kv = torch.randn((b, max(lengths), 2, h, d), generator=gen, device="cuda").to(dtype)
+        k, v = kv.unbind(2)
+        return {"kernel": partial(ra.cross_attention, q, k, v, lens, scale),
+                "plain": partial(ra.cross_attention_reference, q, k, v, lens, scale),
+                "sdpa": partial(sdpa, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale)}
     qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     if case.kernel == "masked_attention":
         q, k, v = qkv.view(b, t, 3, h, d).transpose(1, 3).unbind(2)  # (B, H, T, d) views
         return {"kernel": partial(attn.masked_attention, q, k, v, lengths=lens),
@@ -235,6 +252,19 @@ def _row_calls(case: Case, gen: torch.Generator) -> Dict[str, Optional[Callable]
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    if case.kernel == "qk_norm_wide":  # Wan's q rows, in place
+        args = (randn(batch, rows // batch, width), (1 + 0.1 * randn(width).float()).to(dtype))
+        fn = fused_adaln.qk_norm_wide
+        return {"kernel": partial(fn, *args), "plain": partial(fn, *args, plain=True), "sdpa": None}
+    if case.kernel.endswith("_mixed"):  # Wan's fp32 stream, bf16 rows out (and K5R's bf16 branch in)
+        x = torch.randn((batch, rows // batch, width), generator=gen, device="cuda") * 3 + 1
+        cond = torch.randn((batch, 9, width), generator=gen, device="cuda") * 0.3
+        if case.kernel == "adaln_modulate_mixed":
+            fn, args = fused_adaln.adaln_modulate, (x, cond[:, 0], cond[:, 1])
+        else:
+            fn, args = fused_adaln.adaln_residual, (x, randn(batch, rows // batch, width), *cond[:, 2:5].unbind(1))
+        kw = dict(out_dtype=torch.bfloat16)
+        return {"kernel": partial(fn, *args, **kw), "plain": partial(fn, *args, plain=True, **kw), "sdpa": None}
     if case.kernel.startswith(("qk_norm", "gelu")):  # FLUX.1-schnell's rows: D 3072, 24 heads of 128
         d, t = 3072, rows // batch
         single = t == 256 + 4096  # a single block's [txt | img] rows, in linear1's output; else a double's image
@@ -273,7 +303,9 @@ def _row_calls(case: Case, gen: torch.Generator) -> Dict[str, Optional[Callable]
 def _builds(baseline: Optional[Path]) -> Dict[str, Dict[str, Callable]]:
     """Per tree, the replacements of ``rope_attention._lib`` and
     ``fused_adaln._lib`` that load its build; every library is built
-    before any timing."""
+    before any timing. A baseline library that lacks an entry of this
+    tree's raises ``AttributeError`` when loaded, and its cases are timed on
+    this tree alone."""
     from fit_tpu_torch.ops import _build, fused_adaln
     from fit_tpu_torch.ops import rope_attention as ra
 
@@ -285,7 +317,7 @@ def _builds(baseline: Optional[Path]) -> Dict[str, Dict[str, Callable]]:
         row_lib = fused_adaln.bind(_build.load("row_quant", csrc))
         builds[which] = {"attention": partial(ra._lib, src_dir=csrc), "row": lambda *_, lib=row_lib: lib}
         for source in ("rope_attention", "rope_attention_bwd"):
-            ra._lib(source, csrc)
+            _build.load(source, csrc)
     return builds
 
 

@@ -45,8 +45,9 @@ LATENTS = [(32, 32), (28, 36), (24, 40), (36, 28)]  # (h, w) of the 4-channel la
 K2_KERNELS = ("bwd_prologue_kernel", "bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_tf32_kernel",
               "bwd_dq_tf32_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel")
 GROUPS = [  # (group, substrings of the kernel names in it), first match wins
-    # K1: the bf16 K pre-pass and wgmma forward (rope_attention_kernel_*) and the fp32 (3xTF32) forward
-    ("K1 attention forward", ("rope_attention_tf32_kernel", "rope_attention_kernel")),
+    # K1: the bf16 K pre-pass and wgmma forward (rope_attention_kernel_*), its key loop over keys of their own
+    # (cross_attention_kernel_sm90) and the fp32 (3xTF32) forward
+    ("K1 attention forward", ("rope_attention_tf32_kernel", "rope_attention_kernel", "cross_attention_kernel")),
     ("K2 attention backward", K2_KERNELS),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
     ("optimizer + EMA", ("multi_tensor", "foreach", "adam")),

@@ -1,4 +1,4 @@
-"""Gaussian diffusion and its sampling loops, and FLUX's rectified-flow loop."""
+"""Gaussian diffusion and its sampling loops, and the rectified-flow loops of FLUX and Wan."""
 
 from fit_tpu_torch._exports import lazy_exports
 
@@ -10,7 +10,9 @@ __all__, __getattr__, __dir__ = lazy_exports(
         ),
         ".flow": (
             "denoise",
+            "denoise_guided",
             "get_schedule",
+            "shifted_schedule",
         ),
         ".dpm_solver": (
             "dpm_solver_pp_2m",

@@ -3,7 +3,8 @@
 ``fit_tpu.models`` also exports ``MoeSwiGLU`` (a top-1 Switch FFN), which
 the port has not ported; its mixture of experts is DiT-MoE's
 ``SparseMoeBlock``. ``Flux`` is FLUX.1's two-stream rectified-flow
-transformer, which ``fit_tpu`` does not have.
+transformer and ``WanModel`` Wan2.1's text-to-video one, neither of which
+``fit_tpu`` has.
 """
 
 from fit_tpu_torch._exports import lazy_exports
@@ -29,6 +30,11 @@ __all__, __getattr__, __dir__ = lazy_exports(
             "MLPEmbedder",
             "SingleStreamBlock",
             "create_flux",
+        ),
+        ".wan": (
+            "WanAttentionBlock",
+            "WanModel",
+            "create_wan",
         ),
         ".fit": (
             "FiT",

@@ -11,7 +11,8 @@ __all__ += ["LAUNCHES", "launch_counts", "reset_launches"]
 # wrappers add to it.
 KERNELS = ("rope_attention_fwd", "rope_attention_bwd", "rope_flash_attention", "masked_attention", "adaln_quant",
            "silu_mul_quant", "adaln_modulate", "adaln_residual", "swiglu_glue", "moe_grouped_mm",
-           "moe_combine", "qk_norm", "gelu_glue", "rope_attention_rotate_k")
+           "moe_combine", "qk_norm", "gelu_glue", "rope_attention_rotate_k", "cross_attention",
+           "qk_norm_wide")
 LAUNCHES = collections.Counter()
 
 

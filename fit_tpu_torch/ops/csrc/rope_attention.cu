@@ -75,6 +75,15 @@
 // conversions and a subtraction per fp32 value), so issue slots, not
 // memory, set its time.
 //
+// Cross-attention (cross_attention_fwd, bf16): the same key loop
+// (cross_attention_kernel_sm90, sm90_block) with the keys and values of a
+// sequence of their own, kseq rows, and no RoPE: Wan2.1's video rows over
+// its 512 text rows. Only the clamp of each row's key length and the tensor
+// maps' row count differ from the self-attention kernel; its own name lets
+// a trace tell the two apart. At Wan2.1-T2V-14B's shape (B 2, Tq 32,760, Tk
+// 512, H 40, d 128: 687 GFLOP, ~1.36 GB) a call is four key tiles a block,
+// so q's load and the epilogue weigh as much as the products.
+//
 // With a non-null `lse` both kernels also write each row's log2-sum-exp,
 // lse2 = m + log2(l) from the running max and sum they keep, as a (B, T,
 // H) fp32 tensor: the residual of the backward (rope_attention_bwd.cu),
@@ -188,6 +197,26 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16 cross-attention: the same key loop over kseq keys and values of
+// their own, read by stride through the tensor maps, no RoPE, no lse.
+template <int DP>
+cudaError_t launch_cross(const Args& a, int kseq, cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  cudaError_t err = key_map<DP>(&kmap, a.k, a.head_dim, kseq, a.heads, a.batch, a.lk.t, a.lk.h, a.lk.b);
+  if (err != cudaSuccess) return err;
+  err = key_map<DP>(&vmap, a.v, a.head_dim, kseq, a.heads, a.batch, a.lv.t, a.lv.h, a.lv.b);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = sm90_smem_bytes<DP>();
+  const auto kernel = cross_attention_kernel_sm90<DP>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq + kSm90Rows - 1) / kSm90Rows, a.heads, a.batch);
+  kernel<<<grid, kSm90Threads, smem, stream>>>(kmap, vmap, static_cast<const bf16*>(a.q), static_cast<bf16*>(a.out),
+                                               a.lq, a.lo, static_cast<const int*>(a.lengths), a.seq, kseq, a.heads,
+                                               a.head_dim, a.q_mul);
+  return cudaGetLastError();
+}
+
 // fp32: the 3xTF32 mma.sync kernel (rope_attention_tf32.cuh).
 template <int DP, bool ROPE>
 cudaError_t launch_fp32(const Args& a, cudaStream_t stream) {
@@ -259,6 +288,35 @@ int rope_attention_fwd(const void* q, const void* k, const void* v, void* out, i
     err = rope ? dispatch<bf16, true>(a, s) : dispatch<bf16, false>(a, s);
   } else {
     err = rope ? dispatch<float, true>(a, s) : dispatch<float, false>(a, s);
+  }
+  return static_cast<int>(err);
+}
+
+// Cross-attention (bf16 only): q and out are (B, Tq, H, d) and k and v
+// (B, Tk, H, d), each with element strides (b, t, h) under the same rules
+// as above; query row t attends keys 0 .. k_lengths[b] - 1 (clamped to 1
+// .. Tk), without RoPE and without lse. Runs cross_attention_kernel_sm90.
+int cross_attention_fwd(const void* q, const void* k, const void* v, void* out, int64_t qb, int64_t qt,
+                        int64_t qh, int64_t kb, int64_t kt, int64_t kh, int64_t vb, int64_t vt, int64_t vh,
+                        int64_t ob, int64_t ot, int64_t oh, const void* k_lengths, int batch, int q_seq,
+                        int k_seq, int heads, int head_dim, float q_mul, void* stream) {
+  if (batch < 1 || q_seq < 1 || k_seq < 1 || heads < 1 || head_dim < 8 || head_dim % 8 || head_dim > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{q, k, v, out, {qb, qt, qh}, {kb, kt, kh}, {vb, vt, vh}, {ob, ot, oh},
+               nullptr, nullptr, k_lengths, nullptr, nullptr, batch, q_seq, heads, head_dim, q_mul};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (head_dim <= 16) {
+    err = launch_cross<16>(a, k_seq, s);
+  } else if (head_dim <= 32) {
+    err = launch_cross<32>(a, k_seq, s);
+  } else if (head_dim <= 64) {
+    err = launch_cross<64>(a, k_seq, s);
+  } else if (head_dim <= 80) {
+    err = launch_cross<80>(a, k_seq, s);
+  } else {
+    err = launch_cross<128>(a, k_seq, s);
   }
   return static_cast<int>(err);
 }

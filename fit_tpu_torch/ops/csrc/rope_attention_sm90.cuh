@@ -9,7 +9,9 @@
 // bf16; rows at or past len and columns at or past d are written as zeros.
 //
 // rope_attention_kernel_sm90<DP, ROPE>: one block per (128 query rows,
-// head, batch row), three warpgroups.
+// head, batch row), three warpgroups. cross_attention_kernel_sm90<DP> runs
+// the same block (sm90_block) over keys and values of a sequence of their
+// own, kseq rows long, without RoPE: cross-attention to a text sequence.
 //   warpgroup 0, the producer: gives up its registers (setmaxnreg 24) and
 //     one thread keeps a two-stage ring of K and V tiles (kKeyTile keys x
 //     DP) in flight by TMA, each tile behind a "full" mbarrier that counts
@@ -324,15 +326,17 @@ __global__ void __launch_bounds__(kRotateThreads)
   store8(kr + i * 8, y);
 }
 
-// The key loop. kmap and vmap are 4D (d or DP, T or t_pad, H, B) bf16
-// tensor maps with (kAtom, kKeyTile, 1, 1) boxes and the layout's swizzle.
+// The key loop of one block, shared by both kernels below. kmap and vmap
+// are 4D (d or DP, T or t_pad, H, B) bf16 tensor maps with (kAtom,
+// kKeyTile, 1, 1) boxes and the layout's swizzle (the kernels' own
+// __grid_constant__ parameters). seq is the query rows' count (q, out, lse
+// and the tables); kseq the keys', which lengths[b] is clamped to.
 template <int DP, bool ROPE>
-__global__ void __launch_bounds__(kSm90Threads, 1)
-    rope_attention_kernel_sm90(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-                               const bf16* __restrict__ q, bf16* __restrict__ out, Layout lq, Layout lo,
-                               const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                               const int* __restrict__ lengths, float* __restrict__ lse, int seq, int heads,
-                               int d, float q_mul) {
+__device__ __forceinline__ void sm90_block(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                           const bf16* __restrict__ q, bf16* __restrict__ out, Layout lq, Layout lo,
+                                           const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                                           const int* __restrict__ lengths, float* __restrict__ lse, int seq,
+                                           int kseq, int heads, int d, float q_mul) {
   static_assert(DP % 16 == 0 && DP <= 128, "DP is a multiple of 16, at most 128");
   using L = Sm90Layout<DP>;
   constexpr int kAtom = L::kAtom;
@@ -354,7 +358,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   const int q0 = blockIdx.x * kSm90Rows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int len = min(max(lengths[b], 1), seq);
+  const int len = min(max(lengths[b], 1), kseq);
   const int ntiles = (len + kKeyTile - 1) / kKeyTile;
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
@@ -374,8 +378,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     // The producer: one thread issues every copy.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&kmap)) : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&vmap)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(kmap)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(vmap)) : "memory");
       for (int j = 0; j < ntiles; ++j) {
         const int s = j % kSm90Stages;
         const uint32_t parity = ((j / kSm90Stages) & 1) ^ 1;
@@ -383,14 +387,14 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
         mbar_expect_tx(full_k(s), L::kTileBytes);
 #pragma unroll
         for (int c = 0; c < L::kCols; ++c) {
-          tma_load(ks_addr + s * L::kTileBytes + c * kKeyTile * L::kAtomBytes, &kmap, c * kAtom, j * kKeyTile, h,
+          tma_load(ks_addr + s * L::kTileBytes + c * kKeyTile * L::kAtomBytes, kmap, c * kAtom, j * kKeyTile, h,
                    b, full_k(s));
         }
         mbar_wait(empty_v(s), parity);
         mbar_expect_tx(full_v(s), L::kTileBytes);
 #pragma unroll
         for (int c = 0; c < L::kCols; ++c) {
-          tma_load(vs_addr + s * L::kTileBytes + c * kKeyTile * L::kAtomBytes, &vmap, c * kAtom, j * kKeyTile, h,
+          tma_load(vs_addr + s * L::kTileBytes + c * kKeyTile * L::kAtomBytes, vmap, c * kAtom, j * kKeyTile, h,
                    b, full_v(s));
         }
       }
@@ -538,6 +542,29 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       }
     }
   }
+}
+
+// K1's key loop over the query rows' own keys (self-attention; RoPE or not).
+template <int DP, bool ROPE>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    rope_attention_kernel_sm90(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                               const bf16* __restrict__ q, bf16* __restrict__ out, Layout lq, Layout lo,
+                               const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                               const int* __restrict__ lengths, float* __restrict__ lse, int seq, int heads,
+                               int d, float q_mul) {
+  sm90_block<DP, ROPE>(&kmap, &vmap, q, out, lq, lo, cos_t, sin_t, lengths, lse, seq, seq, heads, d, q_mul);
+}
+
+// The same key loop over a key sequence of its own (cross-attention: kseq
+// keys and values of another tensor, RoPE off), under a name of its own so
+// that a trace tells it from self-attention.
+template <int DP>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    cross_attention_kernel_sm90(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                                const bf16* __restrict__ q, bf16* __restrict__ out, Layout lq, Layout lo,
+                                const int* __restrict__ lengths, int seq, int kseq, int heads, int d, float q_mul) {
+  sm90_block<DP, false>(&kmap, &vmap, q, out, lq, lo, nullptr, nullptr, lengths, nullptr, seq, kseq, heads, d,
+                        q_mul);
 }
 
 }  // namespace

@@ -23,7 +23,10 @@
 // so a double block's K8 writes its stream's rows into the joint [txt | img]
 // buffer at a row offset, a single block's K8 norms linear1's q and k in
 // place, and its K6G writes gelu(m) into the columns of linear2's input
-// beside the attention's output.
+// beside the attention's output. Wan's blocks add K8W, qk_rms_wide_rows<T,
+// C>, the RMSNorm of a whole row of q or k across its heads, and run K5 and
+// K5R on an fp32 residual stream with bf16 results (the O and Y types of
+// adaln_block_rows).
 //
 // adaLN, for one token row x of width D and its batch row b:
 //   mean = sum(x) / D,  var = sum((x - mean)^2) / D       (fp32, two passes)
@@ -471,22 +474,24 @@ adaln_warp_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* _
   }
 }
 
-// K5R's residual operands: y (rows, D), gate (B, D) at the row stride of
-// shift and scale, and x_new's destination (rows, D). Unused by K5 and K3.
-template <typename T>
+// K5R's residual operands: y (rows, D) in Y, gate (B, D) at the row stride
+// of shift and scale, and x_new's destination (rows, D), both in x's T.
+// Unused by K5 and K3.
+template <typename T, typename Y = T>
 struct Residual {
-  const T* y;
+  const Y* y;
   const T* gate;
   T* x_out;
 };
 
 // adaLN, K5, K5R (RESID) and K3 for rows wider than kWarpMaxWidth: one block
-// of 128 threads per row.
-template <typename T, bool QUANT, bool RESID, int C>
+// of 128 threads per row. O is the result's type and Y K5R's branch output's
+// (both T, but for an fp32 residual stream with bf16 branches: Wan's blocks).
+template <typename T, bool QUANT, bool RESID, int C, typename O = T, typename Y = T>
 __global__ void __launch_bounds__(kThreads)
 adaln_block_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* __restrict__ scale,
                  long long cond_stride, void* __restrict__ out, float* __restrict__ row_scale,
-                 int seq, int dim, float eps, Residual<T> res) {
+                 int seq, int dim, float eps, Residual<T, Y> res) {
   static_assert(!(QUANT && RESID), "K5R stores its result in T");
   __shared__ float smem[kWarps];
   const long long row = blockIdx.x;
@@ -546,7 +551,7 @@ adaln_block_rows(const T* __restrict__ x, const T* __restrict__ shift, const T* 
       }
     }
   }
-  store_row<T, QUANT, C>(v, chunks, out, row_scale, row, dim, smem);
+  store_row<O, QUANT, C>(v, chunks, out, row_scale, row, dim, smem);
 }
 
 template <typename T, bool QUANT, int C>
@@ -701,6 +706,47 @@ gelu_rows(const T* __restrict__ src, long long src_bs, long long src_ld, T* __re
   store8(dst + b * dst_bs + t * dst_ld + idx * kChunk, v);
 }
 
+// K8W, qk_rms_wide_rows: Wan's QK-RMSNorm of a whole row of q or of k
+// (width = heads * head_dim lanes, across heads) with a learned weight
+// (width,) in T, in place:
+//   y = T(T(x * rsqrt(sum(x^2) / width + eps)) * w)      (fp32)
+// the inner cast is the released RMSNorm's (type_as before the weight), the
+// outer one the store. One block of 128 threads per row, C chunks of 8 a
+// thread, the sum of squares by block_reduce (a fixed order). Row (b, t)
+// is x + b * bs + t * ld.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+qk_rms_wide_rows(T* x, long long bs, long long ld, const T* __restrict__ w, int seq, int width, float eps) {
+  __shared__ float smem[kWarps];
+  const long long row = blockIdx.x;
+  T* x_row = x + (row / seq) * bs + (row % seq) * ld;
+  const int chunks = width / kChunk;
+  float v[C][kChunk];
+  float sq = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int idx = threadIdx.x + c * kThreads;
+    if (idx < chunks) {
+      load8(x_row + idx * kChunk, v[c]);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) sq += v[c][i] * v[c][i];
+    }
+  }
+  const float ms = __fdiv_rn(block_reduce(sq, smem, Add()), static_cast<float>(width));
+  const float r = rsqrtf(__fadd_rn(ms, eps));
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int idx = threadIdx.x + c * kThreads;
+    if (idx < chunks) {
+      float wc[kChunk];
+      load8(w + idx * kChunk, wc);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) v[c][i] = __fmul_rn(rounded<T>(__fmul_rn(v[c][i], r)), wc[i]);
+      store8(x_row + idx * kChunk, v[c]);
+    }
+  }
+}
+
 // The warp-per-row launch. rows_per_warp is the least that makes the grid
 // fit in one wave: every block resident at once, so none waits for another
 // to finish. Which warp handles a row does not change its result.
@@ -733,10 +779,10 @@ cudaError_t launch_warp_rows(const T* x, const T* shift, const T* scale, long lo
 // K3 up to 1152 wide takes the warp path with C = ceil(quads / 32); K5, K5R,
 // and K3 on wider rows, the block path with C, the chunks per thread, the
 // smallest of 1, 2, 4, 8 that covers the row.
-template <typename T, bool QUANT, bool RESID = false>
+template <typename T, bool QUANT, bool RESID = false, typename O = T, typename Y = T>
 cudaError_t launch_adaln(const void* x, const void* shift, const void* scale,
                          long long cond_stride, void* out, float* row_scale, int rows, int seq,
-                         int dim, float eps, cudaStream_t stream, Residual<T> res = {}) {
+                         int dim, float eps, cudaStream_t stream, Residual<T, Y> res = {}) {
   const T* xp = static_cast<const T*>(x);
   const T* sh = static_cast<const T*>(shift);
   const T* sc = static_cast<const T*>(scale);
@@ -754,13 +800,13 @@ cudaError_t launch_adaln(const void* x, const void* shift, const void* scale,
   const int per_thread = (dim / kChunk + kThreads - 1) / kThreads;
   const dim3 grid(rows), block(kThreads);
   if (per_thread <= 1) {
-    adaln_block_rows<T, QUANT, RESID, 1><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
+    adaln_block_rows<T, QUANT, RESID, 1, O, Y><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
   } else if (per_thread <= 2) {
-    adaln_block_rows<T, QUANT, RESID, 2><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
+    adaln_block_rows<T, QUANT, RESID, 2, O, Y><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
   } else if (per_thread <= 4) {
-    adaln_block_rows<T, QUANT, RESID, 4><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
+    adaln_block_rows<T, QUANT, RESID, 4, O, Y><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
   } else if (per_thread <= 8) {
-    adaln_block_rows<T, QUANT, RESID, 8><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
+    adaln_block_rows<T, QUANT, RESID, 8, O, Y><<<grid, block, 0, stream>>>(xp, sh, sc, cond_stride, out, row_scale, seq, dim, eps, res);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -831,6 +877,27 @@ cudaError_t launch_qk_rms(const void* src, long long src_bs, long long src_ld, v
 }
 
 template <typename T>
+cudaError_t launch_qk_rms_wide(void* x, long long bs, long long ld, const void* w, int batch, int seq, int width,
+                               float eps, cudaStream_t stream) {
+  const int per_thread = (width / kChunk + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned int>(static_cast<long long>(batch) * seq)), block(kThreads);
+  T* xp = static_cast<T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  if (per_thread <= 1) {
+    qk_rms_wide_rows<T, 1><<<grid, block, 0, stream>>>(xp, bs, ld, wp, seq, width, eps);
+  } else if (per_thread <= 2) {
+    qk_rms_wide_rows<T, 2><<<grid, block, 0, stream>>>(xp, bs, ld, wp, seq, width, eps);
+  } else if (per_thread <= 4) {
+    qk_rms_wide_rows<T, 4><<<grid, block, 0, stream>>>(xp, bs, ld, wp, seq, width, eps);
+  } else if (per_thread <= 8) {
+    qk_rms_wide_rows<T, 8><<<grid, block, 0, stream>>>(xp, bs, ld, wp, seq, width, eps);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_gelu(const void* src, long long src_bs, long long src_ld, void* dst, long long dst_bs,
                         long long dst_ld, int batch, int seq, int width, cudaStream_t stream) {
   const int chunks = width / kChunk;
@@ -876,6 +943,24 @@ int adaln_resid_rows_fwd(const void* x, const void* y, const void* gate, const v
   }
   const Residual<float> res{static_cast<const float*>(y), static_cast<const float*>(gate), static_cast<float*>(x_out)};
   return launch_adaln<float, false, true>(x, shift, scale, cond_stride, out, nullptr, rows, seq, dim, eps, s, res);
+}
+
+// K5 and K5R on an fp32 residual stream with bf16 results: x, shift and
+// scale (and K5R's gate and x_out) fp32, K5R's y bf16, out bf16. The
+// residual is x + gate * y in fp32, as an fp32 stream adds a bf16 branch.
+int adaln_rows_mixed_fwd(const void* x, const void* shift, const void* scale, long long cond_stride, void* out,
+                         int rows, int seq, int dim, float eps, void* stream) {
+  return launch_adaln<float, false, false, bf16>(x, shift, scale, cond_stride, out, nullptr, rows, seq, dim, eps,
+                                                 static_cast<cudaStream_t>(stream));
+}
+
+int adaln_resid_rows_mixed_fwd(const void* x, const void* y, const void* gate, const void* shift,
+                               const void* scale, long long cond_stride, void* x_out, void* out, int rows, int seq,
+                               int dim, float eps, void* stream) {
+  const Residual<float, bf16> res{static_cast<const bf16*>(y), static_cast<const float*>(gate),
+                                  static_cast<float*>(x_out)};
+  return launch_adaln<float, false, true, bf16, bf16>(x, shift, scale, cond_stride, out, nullptr, rows, seq, dim,
+                                                      eps, static_cast<cudaStream_t>(stream), res);
 }
 
 int silu_mul_rows_fwd(const void* gate, const void* val, void* out, void* row_scale, int rows,
@@ -932,6 +1017,16 @@ int qk_rms_rows_fwd(const void* src, long long src_bs, long long src_ld, void* d
   }
   return launch_qk_rms<float>(src, src_bs, src_ld, dst, dst_bs, dst_ld, q_scale, k_scale, batch, seq,
                               heads, head_dim, eps, copy_v != 0, s);
+}
+
+// K8W: Wan's RMSNorm of whole rows of q or k, in place: (batch, seq) rows
+// of width (a multiple of 8, at most 8192) by (bs, ld) element strides,
+// times w (width,).
+int qk_rms_wide_fwd(void* x, long long bs, long long ld, const void* w, int batch, int seq, int width, float eps,
+                    int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return launch_qk_rms_wide<bf16>(x, bs, ld, w, batch, seq, width, eps, s);
+  return launch_qk_rms_wide<float>(x, bs, ld, w, batch, seq, width, eps, s);
 }
 
 // K6G: the tanh GELU of (batch, seq, width) rows by (src_bs, src_ld) into

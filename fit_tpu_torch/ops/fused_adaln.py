@@ -18,7 +18,11 @@ FLUX's blocks (``fit_tpu_torch.models.flux``) add two more, neither with a
 head of q and k in a ``[q | k | v]`` projection, in place or into another
 buffer at a row offset) and :func:`gelu_glue` (K6G, the tanh GELU between
 two projections), each reading and writing by row stride; counted under
-"qk_norm" and "gelu_glue".
+"qk_norm" and "gelu_glue". Wan's blocks (``fit_tpu_torch.models.wan``) add
+:func:`qk_norm_wide` (K8W, the RMSNorm of a whole row of q or k across its
+heads, in place; "qk_norm_wide") and run :func:`adaln_modulate` and
+:func:`adaln_residual` on an fp32 residual stream with bf16 results
+(``out_dtype``).
 
 The float blocks of ``fit_tpu_torch.models.layers`` call these three in a
 forward that needs no backward, on the card (``layers.fused_glue``); the
@@ -43,33 +47,38 @@ __all__ = [
     "moe_combine",
     "moe_combine_reference",
     "qk_norm",
+    "qk_norm_wide",
     "gelu_glue",
     "adaln_reference",
     "adaln_residual_reference",
     "swiglu_reference",
     "qk_norm_reference",
+    "qk_norm_wide_reference",
     "gelu_reference",
 ]
 
 
-def adaln_reference(x, shift, scale, eps: float = 1e-6) -> torch.Tensor:
+def adaln_reference(x, shift, scale, eps: float = 1e-6, out_dtype=None) -> torch.Tensor:
     """Plain version of ``_adaln_kernel``: fp32 LayerNorm and modulate,
-    cast once to x's dtype. x (B, T, D); shift, scale (B, D)."""
+    cast once to ``out_dtype`` (x's dtype when None). x (B, T, D); shift,
+    scale (B, D)."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     normed = (xf - mean) * torch.rsqrt(var + eps)
     h = normed * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
-    return h.to(x.dtype)
+    return h.to(out_dtype or x.dtype)
 
 
-def adaln_residual_reference(x, y, gate, shift, scale, eps: float = 1e-6) -> "tuple[torch.Tensor, torch.Tensor]":
+def adaln_residual_reference(x, y, gate, shift, scale, eps: float = 1e-6,
+                             out_dtype=None) -> "tuple[torch.Tensor, torch.Tensor]":
     """Plain version of K5R: the attention residual ``x + gate * y`` as the
     unfused block computes it (the product rounded to x's dtype, then the
-    sum), and :func:`adaln_reference` of that. x, y (B, T, D); gate, shift,
-    scale (B, D). Returns ``(x_new, h)``."""
+    sum; a bf16 y on an fp32 x is promoted), and :func:`adaln_reference` of
+    that. x, y (B, T, D); gate, shift, scale (B, D). Returns ``(x_new,
+    h)``, x_new in x's dtype."""
     x_new = x + gate[:, None, :] * y
-    return x_new, adaln_reference(x_new, shift, scale, eps)
+    return x_new, adaln_reference(x_new, shift, scale, eps, out_dtype)
 
 
 def swiglu_reference(gate, value) -> torch.Tensor:
@@ -86,16 +95,22 @@ def adaln_modulate(
     eps: float = 1e-6,
     use_kernel: bool = True,
     plain: bool = False,
+    out_dtype: "torch.dtype | None" = None,
 ) -> torch.Tensor:
     """``LN(x) * (1 + scale) + shift`` with affine-free fp32 LayerNorm.
-    x: (B, T, D); shift/scale: (B, D). Returns (B, T, D) in x's dtype."""
+    x: (B, T, D); shift/scale: (B, D). Returns (B, T, D) in x's dtype, or
+    in ``out_dtype``: bf16 from an fp32 x (and fp32 shift and scale) is
+    the one mixed case the kernel takes."""
     if not use_kernel:
         from fit_tpu_torch.models.layers import layer_norm_fp32, modulate
 
         return modulate(layer_norm_fp32(x, eps), shift, scale)
     if plain or x.device.type == "cpu":
-        return adaln_reference(x, shift, scale, eps)
-    out, _ = launch_adaln(x, shift, scale, eps, quant=False)
+        return adaln_reference(x, shift, scale, eps, out_dtype)
+    if out_dtype not in (None, x.dtype):
+        out = launch_adaln_mixed(x, shift, scale, eps, out_dtype)
+    else:
+        out, _ = launch_adaln(x, shift, scale, eps, quant=False)
     LAUNCHES["adaln_modulate"] += 1
     return out
 
@@ -109,14 +124,21 @@ def adaln_residual(
     *,
     eps: float = 1e-6,
     plain: bool = False,
+    out_dtype: "torch.dtype | None" = None,
 ) -> "tuple[torch.Tensor, torch.Tensor]":
     """A FiT block's attention residual and the FFN's adaLN in one pass:
     ``x_new = x + gate * y``, with the unfused block's roundings, and
     ``LN(x_new) * (1 + scale) + shift``. x, y: (B, T, D); gate, shift,
-    scale: (B, D). Returns ``(x_new, h)``, both (B, T, D) in x's dtype."""
+    scale: (B, D). Returns ``(x_new, h)``, both (B, T, D) in x's dtype; or
+    on an fp32 residual stream (x, gate, shift, scale fp32) with a bf16
+    branch ``y``, x_new fp32 and h in ``out_dtype`` (bf16), Wan's blocks'
+    mixed case."""
     if plain or x.device.type == "cpu":
-        return adaln_residual_reference(x, y, gate, shift, scale, eps)
-    out = launch_adaln_residual(x, y, gate, shift, scale, eps)
+        return adaln_residual_reference(x, y, gate, shift, scale, eps, out_dtype)
+    if out_dtype not in (None, x.dtype) or y.dtype != x.dtype:
+        out = launch_adaln_residual_mixed(x, y, gate, shift, scale, eps, out_dtype or x.dtype)
+    else:
+        out = launch_adaln_residual(x, y, gate, shift, scale, eps)
     LAUNCHES["adaln_residual"] += 1
     return out
 
@@ -180,6 +202,43 @@ def qk_norm_reference(x, scale, num_heads: int, eps: float = 1e-6) -> torch.Tens
     xf = x.float().reshape(*x.shape[:-1], num_heads, -1)
     normed = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps) * scale.float()
     return normed.reshape(x.shape).to(x.dtype)
+
+
+def qk_norm_wide_reference(x, weight, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of K8W: Wan's RMSNorm of a whole row of q or k (all
+    its heads' lanes), ``rsqrt(mean(x^2) + eps)`` in fp32, cast to x's
+    dtype (the released ``type_as``), times the learned ``weight`` (D,) in
+    fp32, cast again. x (..., D)."""
+    xf = x.float()
+    normed = (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)).to(x.dtype)
+    return (normed.float() * weight.float()).to(x.dtype)
+
+
+def qk_norm_wide(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6, plain: bool = False) -> torch.Tensor:
+    """Wan's QK-RMSNorm (``WanRMSNorm``) of each (B, T, D) row of q or k
+    over all D lanes (across heads, not head by head), in place, x read and
+    written by row stride (a view of a wider projection is fine): K8W on
+    the card, :func:`qk_norm_wide_reference` on the CPU or with
+    ``plain=True``. ``weight`` (D,) in x's dtype. Returns ``x``."""
+    if plain or x.device.type == "cpu":
+        x.copy_(qk_norm_wide_reference(x, weight, eps))
+        return x
+    _check_strided("x", x, x)
+    d = x.shape[-1]
+    if d > _MAX_WIDTH:
+        raise ValueError(f"K8W takes a width of at most {_MAX_WIDTH}, got {d}")
+    if (weight.shape != (d,) or weight.dtype != x.dtype or weight.device != x.device or not weight.is_contiguous()
+            or weight.data_ptr() % 16):
+        raise ValueError(f"weight must be a contiguous, aligned ({d},) {x.dtype} on {x.device}")
+    b, t = x.shape[:2]
+    if b * t:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _lib().qk_rms_wide_fwd(x.data_ptr(), *_row_strides(x), weight.data_ptr(), b, t, d, eps,
+                                         int(x.dtype == torch.bfloat16), stream)
+        _raise_on(err, "qk_rms_wide_rows")
+    LAUNCHES["qk_norm_wide"] += 1
+    return x
 
 
 def gelu_reference(x) -> torch.Tensor:
@@ -340,6 +399,51 @@ def launch_adaln_residual(x, y, gate, shift, scale, eps: float):
             x_new.data_ptr(), out.data_ptr(), b * t, t, d, eps, int(x.dtype == torch.bfloat16), stream,
         )
     _raise_on(err, "adaln_resid_rows")
+    return x_new, out
+
+
+def _check_mixed(x, out_dtype) -> None:
+    """The one mixed case of K5 and K5R: an fp32 x (the conditioning rows
+    are checked to share its dtype) with a bf16 result."""
+    if x.dtype != torch.float32 or out_dtype != torch.bfloat16:
+        raise TypeError(f"the mixed row kernels take an fp32 x and give bf16, got {x.dtype} -> {out_dtype}")
+
+
+def launch_adaln_mixed(x, shift, scale, eps: float, out_dtype):
+    """Launch K5 on an fp32 x with a bf16 result. Raises on what the kernel
+    does not take."""
+    _check_first("x", x)
+    _check_mixed(x, out_dtype)
+    _check_conditioning(x, shift=shift, scale=scale)
+    b, t, d = x.shape
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if b * t:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _lib().adaln_rows_mixed_fwd(x.data_ptr(), shift.data_ptr(), scale.data_ptr(), shift.stride(0),
+                                              out.data_ptr(), b * t, t, d, eps, stream)
+        _raise_on(err, "adaln_rows_mixed")
+    return out
+
+
+def launch_adaln_residual_mixed(x, y, gate, shift, scale, eps: float, out_dtype):
+    """Launch K5R on an fp32 x with a bf16 branch y: ``(x_new, h)``, x_new
+    fp32 and h bf16. Raises on what the kernel does not take."""
+    _check_first("x", x)
+    _check_first("y", y)
+    _check_mixed(x, out_dtype)
+    if y.shape != x.shape or y.dtype != torch.bfloat16 or y.device != x.device:
+        raise ValueError(f"y must be bf16 {tuple(x.shape)} on {x.device}, got {y.dtype} {tuple(y.shape)}")
+    _check_conditioning(x, gate=gate, shift=shift, scale=scale)
+    b, t, d = x.shape
+    x_new, out = torch.empty_like(x), torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if b * t:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _lib().adaln_resid_rows_mixed_fwd(
+                x.data_ptr(), y.data_ptr(), gate.data_ptr(), shift.data_ptr(), scale.data_ptr(), shift.stride(0),
+                x_new.data_ptr(), out.data_ptr(), b * t, t, d, eps, stream)
+        _raise_on(err, "adaln_resid_rows_mixed")
     return x_new, out
 
 
@@ -517,6 +621,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             lib.qk_rms_rows_fwd.restype = i32
             lib.gelu_rows_fwd.argtypes = [ptr, i64, i64, ptr, i64, i64, i32, i32, i32, i32, ptr]
             lib.gelu_rows_fwd.restype = i32
+        if hasattr(lib, "qk_rms_wide_fwd"):  # a build of a tree before Wan's kernels has none of these
+            lib.qk_rms_wide_fwd.argtypes = [ptr, i64, i64, ptr, i32, i32, i32, ctypes.c_float, i32, ptr]
+            lib.qk_rms_wide_fwd.restype = i32
+            lib.adaln_rows_mixed_fwd.argtypes = [ptr, ptr, ptr, i64, ptr, i32, i32, i32, ctypes.c_float, ptr]
+            lib.adaln_rows_mixed_fwd.restype = i32
+            lib.adaln_resid_rows_mixed_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr, ptr, i32, i32, i32,
+                                                       ctypes.c_float, ptr]
+            lib.adaln_resid_rows_mixed_fwd.restype = i32
         lib.row_quant_error_string.argtypes = [i32]
         lib.row_quant_error_string.restype = ctypes.c_char_p
     return lib

@@ -24,6 +24,9 @@ Two kernels:
   :func:`rope_flash_attention` and
   ``fit_tpu_torch.ops.attention.masked_attention`` (RoPE off); the bf16
   K pre-pass counts as ``rope_attention_rotate_k``, once a call with RoPE.
+  :func:`cross_attention` (bf16) runs the same key loop over keys and
+  values of a sequence of their own, without RoPE, as a kernel of its own
+  name (``cross_attention_kernel_sm90``), counted as "cross_attention".
 * K2, :func:`rope_attention_bwd` -> ``csrc/rope_attention_bwd.cu``: dqkv
   (B, T, 3C) from ``(qkv, g, out, lse2)``, at any T: a prologue into
   scratch the wrapper allocates, then dk/dv and dq passes on ``mma.sync``
@@ -59,6 +62,8 @@ __all__ = [
     "rope_attention_bwd",
     "qkv_rope_attention",
     "rope_flash_attention",
+    "cross_attention",
+    "cross_attention_reference",
 ]
 
 LOG2_E = 1.4426950408889634  # softmax as exp2 with log2(e) folded into q
@@ -98,11 +103,11 @@ def _rotated_heads(qkv, cos, sin, num_heads):
 
 
 def _softmax_attention(qr, kr, v, lengths, scale, with_lse):
-    """fp32 (B, T, H, d) attention of rotated q and k over the keys below
-    each row's length, for every query row; with ``with_lse`` also lse2."""
-    t = qr.shape[1]
+    """fp32 (B, Tq, H, d) attention of rotated q over (B, Tk, H, d) rotated
+    k and v, the keys below each row's length, for every query row; with
+    ``with_lse`` also lse2."""
     scores = torch.einsum("bqhd,bkhd->bhqk", qr, kr) * scale
-    scores = scores.masked_fill(~_valid_keys(lengths, t, qr.device), float("-inf"))
+    scores = scores.masked_fill(~_valid_keys(lengths, kr.shape[1], qr.device), float("-inf"))
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v.float())
     if not with_lse:
         return out, None
@@ -308,6 +313,67 @@ def _k1_launch(q, k, v, out, cos, sin, lengths, q_mul, lse=None) -> None:
         raise RuntimeError(f"rope_attention_fwd launch failed: {msg} (cudaError {err})")
     if kscratch is not None:
         LAUNCHES["rope_attention_rotate_k"] += 1
+
+
+def cross_attention_reference(q, k, v, k_lengths, scale) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cross_attention`, all math in fp32:
+    (B, Tq, H, d) queries over (B, Tk, H, d) keys and values, each row's
+    keys below ``k_lengths[b]``. Returns (B, Tq, H, d) in q's dtype."""
+    out, _ = _softmax_attention(q.float(), k.float(), v, k_lengths, scale, False)
+    return out.to(q.dtype)
+
+
+def cross_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_lengths: torch.Tensor,
+    scale: float,
+    *,
+    out: "torch.Tensor | None" = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Attention of (B, Tq, H, d) queries over (B, Tk, H, d) keys and values
+    of another sequence (Tq and Tk independent), without RoPE: query row t
+    of batch row b attends keys ``0 .. k_lengths[b] - 1``; k_lengths (B,)
+    int32, each in 1 .. Tk (not read back to check). q, k, v and ``out``
+    are read and written by stride, under :func:`rope_flash_attention`'s
+    rules. Returns (B, Tq, H, d) in q's dtype: ``out`` when given, else a
+    new tensor. On a CPU tensor, or with ``plain``, the plain version
+    :func:`cross_attention_reference`; on a CUDA tensor K1's key loop over
+    the keys' own sequence (bf16 only; no gradient)."""
+    if plain or q.device.type == "cpu":
+        res = cross_attention_reference(q, k, v, k_lengths, scale)
+        return res if out is None else out.copy_(res)
+    if q.device.type != "cuda":
+        raise ValueError(f"no cross attention kernel for device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the cross attention kernel takes bf16, got {q.dtype}")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if k.shape != (b, tk, h, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, Tk, H, d) with q's B, H and d; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    _check_views(q, q, q, out)
+    _check_views(k, k, v)
+    if k.device != q.device:
+        raise ValueError(f"k is on {k.device}, q on {q.device}")
+    if k_lengths.dtype != torch.int32 or tuple(k_lengths.shape) != (b,):
+        raise ValueError(f"k_lengths must be int32 ({b},), got {k_lengths.dtype} {tuple(k_lengths.shape)}")
+    _check_operand("k_lengths", k_lengths, q.device)
+    if out is None:
+        out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lib = _lib("rope_attention")
+    strides = [st for x in (q, k, v, out) for st in _bth_strides(x)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.cross_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+                                      k_lengths.data_ptr(), b, tq, tk, h, d, scale * LOG2_E, stream)
+    if err != 0:
+        msg = lib.rope_attention_error_string(err).decode()
+        raise RuntimeError(f"cross_attention_fwd launch failed: {msg} (cudaError {err})")
+    LAUNCHES["cross_attention"] += 1
+    return out
 
 
 def _check_bwd_args(qkv, g, out, lse, num_heads) -> None:
@@ -518,28 +584,34 @@ def rope_flash_attention(
     return out
 
 
-# source -> (C entry, its argument kinds: pointer, int64, int, float)
+# source -> its C entries, each with its argument kinds: pointer, int64, int, float
 _ENTRIES = {
-    # q, k, v, out, their (batch, token, head) strides, cos, sin, lengths, lse,
-    # kscratch, batch, seq, heads, head_dim, q_mul, is_bf16, stream
-    "rope_attention": ("rope_attention_fwd", "pppp" + "l" * 12 + "ppppp" "iiii" "fip"),
+    "rope_attention": {
+        # q, k, v, out, their (batch, token, head) strides, cos, sin, lengths, lse,
+        # kscratch, batch, seq, heads, head_dim, q_mul, is_bf16, stream
+        "rope_attention_fwd": "pppp" + "l" * 12 + "ppppp" "iiii" "fip",
+        # q, k, v, out, their (batch, token, head) strides, k_lengths, batch, q_seq, k_seq, heads, head_dim,
+        # q_mul, stream
+        "cross_attention_fwd": "pppp" + "l" * 12 + "p" "iiiii" "fp",
+    },
     # qkv, g, out, lse, cos, sin, lengths, dqkv, rot, stats, batch, seq, heads, head_dim, scale,
     # is_bf16, passes, stream
-    "rope_attention_bwd": ("rope_attention_bwd", "pppppppppp" "iiii" "fiip"),
+    "rope_attention_bwd": {"rope_attention_bwd": "pppppppppp" "iiii" "fiip"},
 }
 
 
 def _lib(source: str, src_dir=_build.CSRC) -> ctypes.CDLL:
     """The built library of ``<src_dir>/<source>.cu`` (this tree's ``csrc/``
-    unless another's is given) with its C entries typed."""
+    unless another's is given) with its C entries typed; a library that
+    lacks one of them raises ``AttributeError`` here."""
     lib = _build.load(source, src_dir)
-    entry, kinds = _ENTRIES[source]
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
+    err = getattr(lib, f"{source}_error_string")
+    if err.restype is not ctypes.c_char_p:  # typed last, so a library that failed is checked again
         ctype = {"p": ctypes.c_void_p, "l": ctypes.c_int64, "i": ctypes.c_int, "f": ctypes.c_float}
-        fn.argtypes = [ctype[k] for k in kinds]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{source}_error_string")
+        for name, kinds in _ENTRIES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctype[k] for k in kinds]
+            fn.restype = ctypes.c_int
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return lib

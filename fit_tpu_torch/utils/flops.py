@@ -197,6 +197,19 @@ def k1_work(lengths: Iterable[int], heads: int, head_dim: int, elem_bytes: int =
     return float(2 * pair), float(nbytes)
 
 
+def cross_work(q_tokens: Iterable[int], k_lengths: Iterable[int], heads: int, head_dim: int,
+               elem_bytes: int = 2) -> Work:
+    """K1's key loop over keys of their own (the cross entry, no RoPE), over
+    rows of these query counts and valid key lengths: two products of ``2 *
+    tq * lk * d`` a (row, head); reads q of every query and k and v of the
+    valid keys and the lengths, writes the output."""
+    pairs = list(zip(q_tokens, k_lengths))
+    act = heads * head_dim * elem_bytes
+    flops = sum(2 * 2 * int(tq) * int(lk) * head_dim * heads for tq, lk in pairs)
+    nbytes = sum(int(tq) * 2 * act + int(lk) * 2 * act + 4 for tq, lk in pairs)
+    return float(flops), float(nbytes)
+
+
 def k2_work(lengths: Iterable[int], heads: int, head_dim: int, elem_bytes: int = 2) -> Work:
     """K2, the attention backward, all three passes: five products; reads
     q, k, v, the output gradient, the output, the fp32 lse, the tables and
@@ -238,9 +251,14 @@ def row_work(kernel: str, rows: int, width: int, batch: int = 1, elem_bytes: int
     writes one, ``rows`` being tokens; "qk_norm" reads and writes the
     ``width`` columns of a row it norms (``[q | k | v]`` into another
     buffer, or q and k in place; the learned scales, 2 x head dim, are
-    left out); "gelu_glue" reads and writes a row of ``width``."""
+    left out); "gelu_glue" reads and writes a row of ``width``;
+    "qk_norm_wide" reads and writes a row of q or k in place (its weight
+    left out); "adaln_modulate_mixed" and "adaln_residual_mixed" are K5 and
+    K5R on an fp32 stream (x, the conditioning and K5R's new x fp32) with
+    bf16 results and K5R's bf16 branch, whatever ``elem_bytes``."""
     act = rows * width * elem_bytes
     cond = batch * width * elem_bytes
+    f32, b16, cond32 = rows * width * 4, rows * width * 2, batch * width * 4
     codes = rows * width + rows * 4
     nbytes = {
         "adaln_quant": act + 2 * cond + codes,
@@ -252,5 +270,8 @@ def row_work(kernel: str, rows: int, width: int, batch: int = 1, elem_bytes: int
         "moe_combine": (top_k + 2) * act + rows * top_k * (8 + 4),
         "qk_norm": 2 * act,
         "gelu_glue": 2 * act,
+        "qk_norm_wide": 2 * act,
+        "adaln_modulate_mixed": f32 + 2 * cond32 + b16,
+        "adaln_residual_mixed": 2 * f32 + 2 * b16 + 3 * cond32,
     }[kernel]
     return 0.0, float(nbytes)

@@ -92,16 +92,19 @@ def launched(**counts) -> dict:
 # instantiations, the key group holding DP or None, the paddings guarded).
 # The fp32 K1 and K2 and the bf16 K2 must not spill at the main paths'
 # paddings, DP 64 and 80; the bf16 K1 (the wgmma kernel and its K
-# pre-pass) at those and at DP 128 (FLUX.1, DiT-MoE); K3's warp-per-row
-# kernel at no width (every FiT and DiT width to 1152).
+# pre-pass) at those and at DP 128 (FLUX.1, DiT-MoE), and its cross entry
+# at DP 128 (Wan2.1); K3's warp-per-row kernel at no width (every FiT and
+# DiT width to 1152), nor K8W (Wan2.1's whole-row QK-RMSNorm).
 MAIN_DP = (64, 80)
 NO_SPILL = {
     "bf16-K1": ("rope_attention", r"rope_attention_kernel_sm90ILi(\d+)ELb([01])E", 10, 0, MAIN_DP + (128,)),
     "bf16-K1-rotate-k": ("rope_attention", r"rope_attention_kernel_rotate_kILi(\d+)E", 5, 0, MAIN_DP + (128,)),
+    "bf16-K1-cross": ("rope_attention", r"cross_attention_kernel_sm90ILi(\d+)E", 5, 0, (128,)),
     "fp32-K1": ("rope_attention", r"rope_attention_tf32_kernelILi(\d+)ELb([01])E", 10, 0, MAIN_DP),
     "bf16-K2": ("rope_attention_bwd", r"bwd_(dkdv|dq)_mma_kernelILi(\d+)E", 10, 1, MAIN_DP),
     "fp32-K2": ("rope_attention_bwd", r"bwd_(dkdv|dq)_tf32_kernelILi(\d+)E", 10, 1, MAIN_DP),
     "K3-warp-rows": ("row_quant", r"adaln_warp_rowsI(13__nv_bfloat16|f)Li(\d+)E", 18, None, None),
+    "K8W": ("row_quant", r"qk_rms_wide_rowsI(13__nv_bfloat16|f)Li(\d+)E", 8, None, None),
 }
 
 

@@ -955,3 +955,206 @@ def test_flux_forward_through_the_kernels_matches_plain(cuda_device):
     assert rel_rms(got, want) <= 3e-2
     out = flow.denoise(model, x["img"], x["img_ids"], x["txt"], x["txt_ids"], x["y"], [1.0, 0.5, 0.0])
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
+# -- Wan2.1: the cross entry, K8W, K5/K5R on an fp32 stream and the video blocks --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,lens", [(32760, 512, (512, 512)), (1000, 77, (77, 30)), (333, 512, (512, 1))],
+                         ids=["wan", "tq-tail-tk-below-a-tile", "one-key"])
+def test_cross_attention_matches_plain_version(cuda_device, tq, tk, lens):
+    """The cross entry at Wan2.1-T2V-14B's shapes (40 heads of 128, 32,760
+    video rows over 512 text keys), at a query count that is no tile
+    multiple over fewer keys than a tile, and with one valid key: q views of
+    a (B, Tq, D) projection, k and v views of a (B, Tk, 2D) one, the output
+    into a wider buffer. Row by row within 3e-2 of the plain version at the
+    output's scale (the bf16 K1 tests' bar, on inputs of std 2: the H100
+    reads 0.7-1.0% of the largest value)."""
+    from fit_tpu_torch.ops import rope_attention as ra
+
+    gen = torch.Generator(device=cuda_device).manual_seed(tq + tk)
+    b, h, d = 2, 40, 128
+
+    def randn(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda_device) * 2).to(torch.bfloat16)
+
+    q = randn(b, tq, h * d).view(b, tq, h, d)
+    kv = randn(b, tk, 2 * h * d)
+    k, v = kv[..., : h * d].view(b, tk, h, d), kv[..., h * d :].view(b, tk, h, d)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    wide = torch.zeros((b, tq, 2 * h * d), dtype=torch.bfloat16, device=cuda_device)
+    out = wide[..., h * d :].view(b, tq, h, d)
+    reset_launches()
+    assert ra.cross_attention(q, k, v, kl, d**-0.5, out=out).data_ptr() == out.data_ptr()
+    torch.cuda.synchronize()
+    assert launch_counts() == launched(cross_attention=1)
+    assert torch.all(wide[..., : h * d] == 0)
+    for i in range(b):
+        want = ra.cross_attention_reference(q[i : i + 1], k[i : i + 1], v[i : i + 1], kl[i : i + 1], d**-0.5)
+        err = (out[i : i + 1].float() - want.float()).abs().max().item()
+        assert err <= 3e-2 * max(1.0, want.float().abs().max().item())
+    with pytest.raises(TypeError):
+        ra.cross_attention(q.float(), k.float(), v.float(), kl, d**-0.5)
+
+
+@pytest.mark.cuda
+def test_wan_self_attention_k1_at_the_cells_shape(cuda_device):
+    """K1 at the shape Wan2.1-T2V-14B's cell runs it: a [cond | uncond] pair
+    of 32,760 video tokens (21 x 30 x 52), 40 heads of 128, q, k and v views
+    of one (B, T, 3D) projection with inputs of std 2 (as the cell's
+    QK-norm weights of 2 leave them: each query weighs a few keys), Wan's
+    (44, 42, 42) RoPE tables, the output into a (B, T, D) buffer. 32,760 is
+    255 tiles of 128 and one of 120, of queries and of keys alike: the
+    first, a middle and the last, partial query tile of heads 0, 17 and 39
+    of both rows against a float64 softmax over all 32,760 rotated keys,
+    within 3e-2 of the output's scale (the bf16 K1 tests' bar). One K1 and
+    one K pre-pass launch."""
+    from fit_tpu_torch.core.pos_embed import rope_ids_nd
+    from fit_tpu_torch.models.wan import rope_axes
+    from fit_tpu_torch.ops import rope_attention as ra
+
+    b, h, d, grid = 2, 40, 128, (21, 30, 52)
+    t = grid[0] * grid[1] * grid[2]
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    qkv = (torch.randn((b, t, 3 * h * d), generator=gen, device=cuda_device) * 2).to(torch.bfloat16)
+    q, k, v = qkv.view(b, t, 3, h, d).unbind(2)
+    axes = [torch.arange(n, device=cuda_device, dtype=torch.float32) for n in grid]
+    ids = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(1, t, 3).expand(b, -1, -1)
+    cos, sin = ra.split_rope_tables(rope_ids_nd(ids, rope_axes(d), 10000.0))
+    lens = torch.full((b,), t, dtype=torch.int32, device=cuda_device)
+    out = torch.empty((b, t, h * d), dtype=torch.bfloat16, device=cuda_device).view(b, t, h, d)
+    reset_launches()
+    assert ra.rope_flash_attention(q, k, v, cos, sin, lens, d**-0.5, out=out).data_ptr() == out.data_ptr()
+    torch.cuda.synchronize()
+    assert launch_counts() == launched(rope_flash_attention=1, rope_attention_rotate_k=1)
+    assert t % 128 == 120
+    tiles = [slice(0, 128), slice(128 * 127, 128 * 128), slice(t - 120, t)]
+    heads = [0, 17, 39]
+    for i in range(b):
+        kr = ra._rope_heads(k[i : i + 1, :, heads], cos[i : i + 1], sin[i : i + 1])[0].transpose(0, 1).double()
+        vh = v[i, :, heads].double().transpose(0, 1)  # (heads, T, d)
+        for rows in tiles:
+            qr = ra._rope_heads(q[i : i + 1, rows][:, :, heads], cos[i : i + 1, rows], sin[i : i + 1, rows])
+            scores = qr[0].transpose(0, 1).double() @ kr.transpose(-1, -2) * d**-0.5  # (heads, rows, T)
+            want = torch.softmax(scores, dim=-1) @ vh
+            got = out[i, rows][:, heads].double().transpose(0, 1)
+            err = (got - want).abs().max().item()
+            assert err <= 3e-2 * max(1.0, want.abs().max().item()), (i, rows, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_wan_qk_norm_wide_matches_plain_version(cuda_device, dtype):
+    """K8W as Wan's blocks call it: a (2, 32,760, 5120) q in place, and the
+    k columns of a (2, 512, 2 x 5120) text projection by row stride (v
+    untouched); bf16 within 2 ulps (two roundings: the released cast before
+    the weight, and the store), fp32 within 1e-5."""
+    from fit_tpu_torch.ops import fused_adaln
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5120)
+
+    def randn(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda_device) * 3).to(dtype)
+
+    q, kv = randn(2, 32760, 5120), randn(2, 512, 2 * 5120)
+    wq, wk = ((2 + 0.2 * torch.randn(5120, generator=gen, device=cuda_device)).to(dtype) for _ in range(2))
+    want_q, want_k = fused_adaln.qk_norm_wide_reference(q, wq), fused_adaln.qk_norm_wide_reference(kv[..., :5120], wk)
+    v = kv[..., 5120:].clone()
+    reset_launches()
+    fused_adaln.qk_norm_wide(q, wq)
+    fused_adaln.qk_norm_wide(kv[..., :5120], wk)
+    torch.cuda.synchronize()
+    assert launch_counts() == launched(qk_norm_wide=2)
+    assert torch.equal(kv[..., 5120:], v)
+    for got, want in ((q, want_q), (kv[..., :5120], want_k)):
+        if dtype == torch.bfloat16:
+            assert bf16_ulps(got, want) <= 2
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        fused_adaln.qk_norm_wide(q, wq[:128])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [32760, 7])
+def test_wan_mixed_adaln_rows_match_plain_version(cuda_device, t):
+    """K5 and K5R on Wan's fp32 residual stream with bf16 results: the new
+    stream x + gate * y bit for bit the eager fp32 sum, each bf16 row within
+    one ulp; norm3 as a column-constant shift and scale (row stride 0)."""
+    from fit_tpu_torch.ops import fused_adaln
+
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    x = torch.randn((2, t, 5120), generator=gen, device=cuda_device) * 3 + 1
+    y = torch.randn((2, t, 5120), generator=gen, device=cuda_device).to(torch.bfloat16)
+    cond = torch.randn((2, 9, 5120), generator=gen, device=cuda_device) * 0.3
+    bias, scale = (torch.randn(5120, generator=gen, device=cuda_device) * 0.1 for _ in range(2))
+    reset_launches()
+    h = fused_adaln.adaln_modulate(x, cond[:, 0], cond[:, 1], out_dtype=torch.bfloat16)
+    x_new, h2 = fused_adaln.adaln_residual(x, y, cond[:, 2], cond[:, 3], cond[:, 4], out_dtype=torch.bfloat16)
+    h3 = fused_adaln.adaln_modulate(x, bias.expand(2, -1), scale.expand(2, -1), out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert launch_counts() == launched(adaln_modulate=2, adaln_residual=1)
+    assert h.dtype == h2.dtype == torch.bfloat16 and x_new.dtype == torch.float32
+    want_x, want_h2 = fused_adaln.adaln_residual(x, y, cond[:, 2], cond[:, 3], cond[:, 4], out_dtype=torch.bfloat16,
+                                                 plain=True)
+    assert torch.equal(x_new, want_x)
+    for got, want in ((h, fused_adaln.adaln_reference(x, cond[:, 0], cond[:, 1], out_dtype=torch.bfloat16)),
+                      (h2, want_h2),
+                      (h3, fused_adaln.adaln_reference(x, bias.expand(2, -1), scale.expand(2, -1),
+                                                       out_dtype=torch.bfloat16))):
+        assert bf16_ulps(got, want) <= 1
+    with pytest.raises(TypeError):
+        fused_adaln.adaln_modulate(x.to(torch.bfloat16), cond[:, 0], cond[:, 1], out_dtype=torch.float32)
+
+
+def wan_blocks(device, depth=2):
+    """A bf16 Wan at Wan2.1-T2V-14B's widths (5120, 40 heads of 128, FFN
+    13,824), ``depth`` blocks, every leaf N(0, 0.02), the QK-RMSNorm weights
+    about 2 and norm3's about 1: each query weighs a few keys, so a
+    position or a norm moves the output."""
+    from fit_tpu_torch.models.wan import create_wan
+    from fit_tpu_torch.sampling import cast_for_sampling
+
+    model = seeded(create_wan("wan2.1-t2v-14b", num_layers=depth, dtype=torch.bfloat16, device=device), 13)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("norm_q.weight", "norm_k.weight")):
+                p.add_(2.0)
+            elif name.endswith("norm3.weight"):
+                p.add_(1.0)
+    return cast_for_sampling(model, device)
+
+
+@pytest.mark.cuda
+def test_wan_forward_through_the_kernels_matches_plain(cuda_device):
+    """2 blocks at Wan2.1-T2V-14B's widths over a (16, 5, 16, 24) latent
+    (480 tokens) and 512 text rows, a [cond | uncond] pair, through K1, the
+    cross entry, K5, K5R, K8W and K6G against the same forward through
+    their plain versions: 3e-2 relative RMS. A block launches K1 (and its K
+    pre-pass) and the cross entry once, K5 once, K5R twice, K8W four times
+    and K6G once; the head K5 once. The plain forward launches none, and
+    the guided Euler loop over 2 steps stays finite."""
+    from fit_tpu_torch.diffusion import flow
+
+    model = wan_blocks(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    z = torch.randn((1, 16, 5, 16, 24), generator=gen, device=cuda_device)
+    ctx = torch.randn((2, 512, 4096), generator=gen, device=cuda_device)
+    ctx[1, 100:] = 0  # the negative prompt's rows past its length
+    t = torch.tensor([900.0, 900.0], device=cuda_device)
+    with torch.inference_mode():
+        reset_launches()
+        got = model(torch.cat((z, z)), t, ctx)
+        assert launch_counts() == launched(rope_flash_attention=2, rope_attention_rotate_k=2, cross_attention=2,
+                                           adaln_modulate=2 + 1, adaln_residual=2 * 2, qk_norm_wide=2 * 4,
+                                           gelu_glue=2)
+        reset_launches()
+        model.plain_kernels = True
+        want = model(torch.cat((z, z)), t, ctx)
+        model.plain_kernels = False
+        assert launch_counts() == launched()
+    assert got.shape == (2, 16, 5, 16, 24) and got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert rel_rms(got, want) <= 3e-2
+    out = flow.denoise_guided(model, z, ctx[:1], ctx[1:], flow.shifted_schedule(2, 5.0), 5.0)
+    assert out.shape == z.shape and torch.isfinite(out).all()

@@ -96,14 +96,16 @@ SECTION_6 = {
     ("bf16", "8"): [(111.8, OPS), (186.4, OPS)],  # the dq pass, K2 whole
     ("bf16", "9"): [(149.1, OPS), (17.4, BYTES)],  # the dk/dv pass, the prologue
     ("bf16", "10"): [(78.2, OPS)],
-    ("bf16", "11"): [(5.7, BYTES), (70.7, BYTES)],
+    ("bf16", "11"): [(5.7, BYTES), (70.7, BYTES), (600.9, BYTES)],  # the last: Wan's fp32 stream, bf16 out
     ("bf16", "12"): [(22.5, BYTES), (281.7, BYTES), (330.5, BYTES)],
     ("bf16", "13"): [(18.8, BYTES)],
     ("bf16", "14"): [(4.25, BYTES)],
-    ("bf16", "15"): [(11.3, BYTES), (45.2, BYTES), (141.3, BYTES)],
+    ("bf16", "15"): [(11.3, BYTES), (45.2, BYTES), (141.3, BYTES), (1201.7, BYTES)],  # the last: Wan's fp32 stream
     ("bf16", "16"): [(55.2, BYTES)],
     ("bf16", "17"): [(180.3, BYTES), (127.7, BYTES)],  # K8 into the joint buffer, then in place
     ("bf16", "18"): [(240.4, BYTES), (255.4, BYTES)],  # K6G contiguous, then by row stride
+    ("bf16", "19"): [(694.7, OPS)],  # the cross entry: Wan's 2 x 32,760 video rows over 512 text keys
+    ("bf16", "20"): [(400.6, BYTES)],  # K8W: Wan's 65,520 rows of q, D 5120, in place
     ("fp32", "10"): [((468.5, OPS), (1153.9, OPS))],
     ("fp32", "1"): [((17.3, OPS), (42.6, OPS))],
     ("fp32", "4"): [((32.8, BYTES), (76.8, OPS))],

@@ -121,6 +121,7 @@ COUNTERS = [
     (rope_attention, "rope_attention_bwd"),
     (rope_attention, "rope_flash_attention"),
     (rope_attention, "rope_attention_rotate_k"),
+    (rope_attention, "cross_attention"),
     (attention, "masked_attention"),
     (quant, "adaln_quant"),
     (quant, "silu_mul_quant"),
@@ -128,6 +129,7 @@ COUNTERS = [
     (fused_adaln, "adaln_residual"),
     (fused_adaln, "swiglu_glue"),
     (fused_adaln, "moe_combine"),
+    (fused_adaln, "qk_norm_wide"),
 ]
 
 
